@@ -1,0 +1,70 @@
+"""Carry the JAX package's weights into the port.
+
+``load_jax_params(model, params, stats)`` takes the ``segmenter_init``
+pytrees as numpy (nested dicts and lists, e.g. after
+``jax.tree.map(np.asarray, ...)``) and fills a ``segtpu_torch``
+``Segmenter``. The port's modules mirror the pytrees leaf for leaf, so
+a pytree path ``encoder.blocks.3.dw.w`` is the state-dict key of the
+same name:
+
+* conv kernels ``w`` go from HWIO to OIHW (a depthwise [kh, kw, 1, C]
+  becomes [C, 1, kh, kw] by the same permutation);
+* BatchNorm ``scale``/``bias`` and ``mean``/``var`` and the
+  classifier bias ``b`` are copied;
+* the stem keeps its 3x3 kernel; the port derives its own
+  ``stem_s2d_kernel``.
+
+Any missing, extra or mis-shaped leaf raises. No JAX import.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        out[prefix] = np.asarray(tree)
+        return
+    for k, v in items:
+        _flatten(v, f"{prefix}.{k}" if prefix else str(k), out)
+
+
+def load_jax_params(model: torch.nn.Module, params, stats) -> torch.nn.Module:
+    """Copy JAX ``params``/``stats`` into ``model`` in place; returns it."""
+    leaves: Dict[str, np.ndarray] = {}
+    _flatten(params, "", leaves)
+    stat_leaves: Dict[str, np.ndarray] = {}
+    _flatten(stats, "", stat_leaves)
+    clash = leaves.keys() & stat_leaves.keys()
+    if clash:
+        raise ValueError(f"leaves in both params and stats: {sorted(clash)}")
+    leaves.update(stat_leaves)
+
+    state = model.state_dict()
+    missing = sorted(state.keys() - leaves.keys())
+    extra = sorted(leaves.keys() - state.keys())
+    if missing or extra:
+        raise ValueError(f"JAX pytree does not match the model: missing "
+                         f"{missing[:8]} ({len(missing)}), extra "
+                         f"{extra[:8]} ({len(extra)})")
+    with torch.no_grad():
+        for key, arr in leaves.items():
+            if key.rsplit(".", 1)[-1] == "w":
+                if arr.ndim != 4:
+                    raise ValueError(f"{key}: conv kernel must be 4-D HWIO, "
+                                     f"got shape {arr.shape}")
+                arr = np.transpose(arr, (3, 2, 0, 1))        # HWIO -> OIHW
+            dst = state[key]
+            if tuple(arr.shape) != tuple(dst.shape):
+                raise ValueError(f"{key}: shape {tuple(arr.shape)} does not "
+                                 f"match the model's {tuple(dst.shape)}")
+            dst.copy_(torch.tensor(arr, dtype=torch.float32))
+    return model

@@ -1,0 +1,190 @@
+"""Serving engine: uint8 image in, uint8 mask out
+(counterpart: segtpu/engine/inference.py).
+
+For even H and W the path is
+
+    front kernel (normalize + space-to-depth, zero-padded to the stride
+    multiple) -> Segmenter on "s2d12" -> tail kernel (upsample + argmax,
+    cropped to H x W)
+
+and for odd H or W the normalized image is zero-padded and goes through
+the 3x3 stride-2 ("nhwc3") stem into the same tail — the JAX engine's
+shape rule (``use_s2d``), not a fallback. Compute is bf16 by default,
+f32 selectable; the tail's interpolation and argmax run in f32.
+
+On a CUDA device both ends run as the hand-written kernels of
+``segtpu_torch.kernels``; ``use_kernels=False`` swaps in their plain
+PyTorch versions (the reference run), and on the CPU the plain
+versions are what the wrappers run.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from segtpu_torch.core.resize import resize_bilinear
+from segtpu_torch.kernels.front import normalize_s2d_front
+from segtpu_torch.kernels.upsample_argmax import upsample_argmax
+from segtpu_torch.utils.helpers import (IMG_MEAN, IMG_SCALE, IMG_STD,
+                                        resolve_device)
+
+STRIDE = 32  # encoder output stride — pad-to-stride rule
+
+
+def pad_to_stride(hw: Tuple[int, int], stride: int = STRIDE) -> Tuple[int, int]:
+    h, w = hw
+    return (-(-h // stride) * stride, -(-w // stride) * stride)
+
+
+def _stage_u8(img_u8) -> Tuple[np.ndarray, bool]:
+    """uint8 [..., H, W, 3] -> (contiguous [N, H, W, 3], squeeze). The
+    front kernel reads the contiguous HWC bytes directly (the JAX
+    engine's pair-blocked staging is a view of the same memory)."""
+    img = np.ascontiguousarray(img_u8, dtype=np.uint8)
+    if img.ndim == 3:
+        return img[None], True
+    if img.ndim != 4 or img.shape[-1] != 3:
+        raise ValueError(f"expected uint8 [H, W, 3] or [N, H, W, 3], got "
+                         f"{img.shape}")
+    return img, False
+
+
+def normalize_on_device(img_u8, compute_dtype):
+    """uint8 [N, H, W, 3] -> normalized [N, 3, H, W] in compute_dtype,
+    the arithmetic of ``prepare_img`` in f32."""
+    dev = img_u8.device
+    mean = torch.from_numpy(IMG_MEAN).to(dev)[:, None, None]
+    std = torch.from_numpy(IMG_STD).to(dev)[:, None, None]
+    x = img_u8.permute(0, 3, 1, 2).float() * torch.tensor(
+        IMG_SCALE, dtype=torch.float32, device=dev)
+    return ((x - mean) / std).to(compute_dtype)
+
+
+class Segmenter:
+    """User-facing inference API.
+
+    >>> seg = Segmenter(model)                 # model: models.Segmenter
+    >>> mask = seg.predict(img_u8)             # uint8 [H,W,3] -> uint8 [H,W]
+    >>> masks = seg.predict_batch(imgs_u8)     # uint8 [N,H,W,3]
+
+    The model is copied to ``device`` once, at construction, with its
+    conv weights in the compute dtype (BatchNorm stays f32). Entry
+    points run on the card unless ``device="cpu"`` is passed.
+    """
+
+    def __init__(self, model, *, align_corners: bool = True,
+                 compute_dtype=torch.bfloat16, device="cuda",
+                 use_kernels: bool = True):
+        if compute_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"compute_dtype is bf16 or f32, not {compute_dtype}")
+        self.device = resolve_device(device)
+        self.align_corners = align_corners
+        self.compute_dtype = compute_dtype
+        self.use_kernels = use_kernels
+        model = copy.deepcopy(model).eval()
+        with torch.no_grad():
+            for m in model.modules():
+                for name in ("w", "b"):
+                    p = m._parameters.get(name)
+                    if p is not None:
+                        p.data = p.data.to(compute_dtype)
+        self.model = model.to(self.device)
+        self.num_classes = model.num_classes
+
+    def infer(self, imgs):
+        """uint8 [N, H, W, 3] tensor on the engine's device -> uint8
+        mask [N, H, W] on the device (asynchronous on CUDA)."""
+        return self._run(imgs, return_logits=False)
+
+    @torch.inference_mode()
+    def _run(self, imgs, *, return_logits: bool):
+        n, h, w, _ = imgs.shape
+        hp, wp = pad_to_stride((h, w))
+        if h % 2 == 0 and w % 2 == 0:
+            x = normalize_s2d_front(imgs, padded_hw=(hp, wp),
+                                    out_dtype=self.compute_dtype,
+                                    use_kernels=self.use_kernels)
+            fmt = "s2d12"
+        else:
+            x = normalize_on_device(imgs, self.compute_dtype)
+            x = F.pad(x, (0, wp - w, 0, hp - h))
+            fmt = "nhwc3"
+        logits = self.model(x, input_format=fmt,
+                            align_corners=self.align_corners)
+        if return_logits:
+            up = resize_bilinear(logits.float(), (hp, wp),
+                                 align_corners=self.align_corners)
+            return up[:, :, :h, :w]
+        return upsample_argmax(logits.contiguous(), (hp, wp), crop_hw=(h, w),
+                               align_corners=self.align_corners,
+                               use_kernels=self.use_kernels)
+
+    def predict(self, img_u8, *, return_logits: bool = False):
+        """Single image [H, W, 3] or batch [N, H, W, 3] of uint8.
+
+        A numpy array in gives numpy out, after the device finishes; a
+        tensor in gives a tensor on the engine's device out, without
+        waiting. ``return_logits`` gives f32 full-resolution logits
+        [(N,) K, H, W] (bilinear, cropped) instead of the mask."""
+        if isinstance(img_u8, torch.Tensor):
+            squeeze = img_u8.ndim == 3
+            imgs = img_u8[None] if squeeze else img_u8
+            out = self._run(imgs.to(self.device), return_logits=return_logits)
+            return out[0] if squeeze else out
+        imgs, squeeze = _stage_u8(img_u8)
+        out = self._run(torch.from_numpy(imgs).to(self.device),
+                        return_logits=return_logits).cpu().numpy()
+        return out[0] if squeeze else out
+
+    predict_batch = predict
+
+    def predict_stream(self, images):
+        """Yield the mask of each image (numpy) in order. On CUDA the
+        host-to-device copy of frame i+1 runs on a side stream from
+        pinned memory while the card computes frame i."""
+        cuda = self.device.type == "cuda"
+        copy_stream = torch.cuda.Stream(self.device) if cuda else None
+
+        def stage(im):
+            imgs, squeeze = _stage_u8(im)
+            host = torch.from_numpy(imgs)
+            if not cuda:
+                return host, None, squeeze, None
+            host = host.pin_memory()
+            with torch.cuda.stream(copy_stream):
+                dev = host.to(self.device, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(copy_stream)
+            # the pinned buffer must outlive its asynchronous copy
+            return dev, ready, squeeze, host
+
+        def finish(out, squeeze):
+            out = out.cpu().numpy()
+            return out[0] if squeeze else out
+
+        it = iter(images)
+        try:
+            nxt = stage(next(it))
+        except StopIteration:
+            return
+        pending = None
+        while nxt is not None:
+            cur, ready, squeeze, _host = nxt
+            try:
+                nxt = stage(next(it))
+            except StopIteration:
+                nxt = None
+            if ready is not None:
+                compute = torch.cuda.current_stream(self.device)
+                compute.wait_event(ready)
+                cur.record_stream(compute)
+            out = self.infer(cur)
+            if pending is not None:
+                yield finish(*pending)
+            pending = (out, squeeze)
+        yield finish(*pending)
