@@ -15,14 +15,44 @@ Phases, each a hard failure (non-zero exit) when it fails:
    1000x2000 (and f32 uncropped): masks identical on >= 99.99 % of
    pixels, every mismatch a near-tie (top-2 f32 logits within 1e-3 of
    max(|top1|, 1)).
-4. slice: Segmenter for arch0, 19 classes, seeded weights with BatchNorm
+4. encoder: the folded arch0 encoder (seeded weights, BatchNorm
+   perturbed and folded) stage by stage on the front's output for the
+   seeded b8 frames: each of the 18 launches of the main path (stem
+   conv_chw, 13 inv_res_chw, 4 inv_res_s2_chw) against its plain twin on
+   the same input, bf16: >= 99 % of output elements bit-identical and
+   the worst error <= 1e-2 of max(|ref|, 1). The kernel's output feeds
+   the next stage. Then every stage in f32 at 2x128x256 (rtol = atol =
+   1e-4), and conv_chw's other forms and odd-sized blocks at small
+   shapes, f32 and bf16. Each launch is timed with its plain twin and a
+   cuDNN yardstick (F.conv2d with the folded weights: one call for the
+   stem, the three-call expand/dw/project sequence for a block, without
+   the activations and residual, since no one call computes a block).
+5. decoder: the folded arch0 decoder on the kernels' taps of seeded b8
+   1024x2048 frames, every kernel call recorded and replayed against its
+   plain twin (bf16 as in phase 4), timed with it and with the same
+   function as PyTorch library calls (cuDNN convolutions,
+   F.interpolate); likewise on genotype G2's b8 512x512 path for the
+   kernels arch0 does not reach (pair_op_chw, pw_multi_chw) and the
+   W-first tail on its logits. The bf16 taps and logits are held against
+   the unfolded model run in f32 through cuDNN (worst error <= 3 % of the
+   largest tap value, <= 5 % of the largest logit). Then every decoder
+   call in f32 at small shapes against its twin (1e-4) and its library
+   version (1e-4 of the largest value), and the decoder kernels' other
+   forms at odd sizes.
+6. slice: Segmenter for arch0, 19 classes, seeded weights with BatchNorm
    perturbed. predict_batch on 8 seeded 1024x2048 frames (the main
-   path, launch counts reset just before and read just after) and
-   predict on one 1000x1500 frame (the pad path, likewise): masks agree
-   >= 99.9 % with the same Segmenter run with use_kernels=False on the
-   card; f32 masks on a small frame agree >= 99.9 % with the CPU run;
-   predict_stream gives predict's masks in order; logits are finite.
-5. timing with CUDA events: each kernel, its plain version and one
+   path, launch counts reset just before and read just after, each
+   kernel's count checked: PATH_LAUNCHES) and predict on one 1000x1500
+   frame (the pad path, likewise) and on one 999x1501 frame (odd: no
+   front kernel, the padded frame packed by space-to-depth on the
+   device): masks agree >= 99.9 % with the same
+   Segmenter run with use_kernels=False on the card; f32 masks on a
+   small frame agree >= 99.9 % with the CPU run; predict_stream gives
+   predict's masks in order; logits are finite. Then G2's path,
+   predict_batch on 8 frames of 512x512 (G2_LAUNCHES, masks >= 99.9 %
+   equal to use_kernels=False): the launches of pair_op_chw,
+   pw_multi_chw and upsample_argmax_flat are read there.
+7. timing with CUDA events: each kernel, its plain version and one
    PyTorch library call computing the same function where there is
    one, and predict_batch at b8 from a device-resident batch.
 
@@ -42,6 +72,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12        # H100 SXM data sheet, f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12      # H100 SXM data sheet, bf16 tensor cores, dense
 
 N, H, W, K = 8, 1024, 2048, 19
 
@@ -141,7 +172,8 @@ def phase_tail(torch):
     logits = torch.randn((N, K, H // 4, W // 4), generator=g,
                          device="cuda").to(torch.bfloat16)
     worst = 0
-    cases = [(logits, None), (logits, (1000, 2000)), (logits.float(), None)]
+    cases = [(logits, None), (logits, (H - 24, W - 48)),
+             (logits.float(), None)]
     for x, crop in cases:
         got = upsample_argmax(x, (H, W), crop_hw=crop)
         want = upsample_argmax_plain(x, (H, W), crop_hw=crop)
@@ -158,11 +190,595 @@ def phase_tail(torch):
     return logits, worst
 
 
-def make_model(torch):
+def _compare(torch, got, want, what):
+    """bf16: share of bit-identical elements and the worst error as a
+    share of max(|ref|, 1); f32: allclose at 1e-4."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
+          f"{want.dtype}")
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
+    err = ((g - w).abs() / w.abs().clamp_min(1.0)).max().item()
+    abs_err = (g - w).abs().max().item()
+    if got.dtype == torch.bfloat16:
+        rate = (got.view(torch.int16) == want.view(torch.int16)).float()
+        rate = rate.mean().item()
+        ok = rate >= 0.99 and err <= 1e-2
+        print(f"[check] {what}: bit-identical={rate!r} worst={err!r}")
+        check(ok, f"{what}: bit-identical {rate} < 99 % or error {err} > 1e-2")
+    else:
+        ok = torch.allclose(g, w, rtol=1e-4, atol=1e-4)
+        print(f"[check] {what}: f32 max_abs_err={abs_err!r}")
+        check(ok, f"{what}: f32 kernel differs from plain beyond 1e-4")
+    return abs_err
+
+
+def encoder_stages(enc):
+    """(kernel name, stage fn(x, use_kernels), cuDNN yardstick fn(x),
+    work fn(x) -> (bytes, dot flops, f32 flops)) for the stem and the
+    17 blocks of a FoldedMobileNetV2, in path order."""
+    import torch.nn.functional as F
+
+    def stem_lib(x):
+        h, w = x.shape[-2:]
+        return F.conv2d(x, enc.stem_w, enc.stem_b.to(x.dtype),
+                        padding=1)[..., :h, :w]
+
+    stages = [("conv_chw", enc.stem, stem_lib,
+               lambda x: conv_work(x.shape, 32, 2, False, x.element_size()))]
+    for blk in enc.blocks:
+        def lib(x, blk=blk):
+            dt = x.dtype
+            if blk.w_exp is not None:
+                x = F.conv2d(x, blk.w_exp, blk.b_exp.to(dt))
+            x = F.conv2d(x, blk.w_dw.to(dt), blk.b_dw.to(dt),
+                         stride=blk.stride, padding=1, groups=x.shape[1])
+            return F.conv2d(x, blk.w_proj, blk.b_proj.to(dt))
+
+        def work(x, blk=blk):
+            return inv_res_work(x.shape, blk.w_dw.shape[0],
+                                blk.w_proj.shape[0], blk.stride,
+                                blk.w_exp is not None, x.element_size())
+        name = "inv_res_s2_chw" if blk.stride == 2 else "inv_res_chw"
+        stages.append((name, blk, lib, work))
+    return stages
+
+
+def phase_encoder(torch, img):
+    """Phase 4 (see the module doc). Returns per-kernel sums over the
+    main path's launches (worst abs error, kernel/plain/library ms,
+    bytes and operations) and each launch's times."""
+    from segtpu_torch.kernels.front import normalize_s2d_front
+    from segtpu_torch.models.fast_encoder import fold_encoder
+    model = make_model(torch)
+    names = ("conv_chw", "inv_res_chw", "inv_res_s2_chw")
+    res = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   bytes=0, dot=0, f32=0, n=0) for n in names}
+    enc = fold_encoder(model.encoder, torch.bfloat16).to("cuda")
+    y = normalize_s2d_front(img)
+    stage_ms = []
+    with torch.inference_mode():
+        for i, (name, fn, lib, work) in enumerate(encoder_stages(enc)):
+            got = fn(y, True)
+            want = fn(y, False)
+            torch.cuda.synchronize()
+            r = res[name]
+            r["max_abs_err"] = max(r["max_abs_err"], _compare(
+                torch, got, want, f"stage {i:2d} {name} {tuple(y.shape)}"))
+            ms = cuda_ms(lambda: fn(y, True), 5)
+            plain_ms = cuda_ms(lambda: fn(y, False), 2, warmup=1)
+            lib_ms = cuda_ms(lambda: lib(y), 5)
+            print(f"[timing] stage {i:2d} {name} {tuple(y.shape)}: {ms:.4f} ms"
+                  f", plain {plain_ms:.4f} ms, cuDNN yardstick {lib_ms:.4f} ms")
+            stage_ms.append((name, list(y.shape), ms, plain_ms, lib_ms))
+            r["ms"] += ms
+            r["plain_ms"] += plain_ms
+            r["library_ms"] += lib_ms
+            nbytes, dot, f32 = work(y)
+            r["bytes"] += nbytes
+            r["dot"] += dot
+            r["f32"] += f32
+            r["n"] += 1
+            y = got
+        check([res[n]["n"] for n in names] == [1, 13, 4],
+              f"encoder stage counts {[res[n]['n'] for n in names]}")
+
+        # f32 at a small batch, every stage
+        enc32 = fold_encoder(model.encoder, torch.float32).to("cuda")
+        y = normalize_s2d_front(img[:2, :128, :256].contiguous(),
+                                out_dtype=torch.float32)
+        for i, (name, fn, _, _) in enumerate(encoder_stages(enc32)):
+            got = fn(y, True)
+            _compare(torch, got, fn(y, False), f"f32 stage {i:2d} {name}")
+            y = got
+        phase_kernel_forms(torch)
+    return res, stage_ms
+
+
+def phase_kernel_forms(torch):
+    """conv_chw's decoder forms and inverted residuals at odd sizes
+    (tiles cut by the image edge), small shapes, f32 and bf16."""
+    from segtpu_torch.kernels.chw_ops import (conv_chw, inv_res_chw,
+                                              inv_res_s2_chw)
+    g = torch.Generator(device="cuda").manual_seed(4)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    conv_cases = [  # k, dilation, depthwise, act, cin, cout, acc, vec
+        (3, 2, False, "relu", 48, 48, False, False),
+        (3, 12, False, "relu", 48, 48, False, False),
+        (5, 1, True, "relu", 48, 48, False, False),
+        (5, 6, True, "none", 48, 48, True, False),
+        (1, 1, False, "none", 96, 19, True, False),
+        (3, 1, False, "relu", 48, 48, False, True),
+        (2, 1, False, "relu6", 12, 32, False, False),
+    ]
+    for k, dil, dw, act, cin, cout, use_acc, use_vec in conv_cases:
+        x = rnd(2, cin, 37, 70)
+        w = rnd(cin, 1, k, k, scale=0.3) if dw else rnd(cout, cin, k, k,
+                                                        scale=0.1)
+        b = rnd(cout, scale=0.1)
+        acc = rnd(2, cout, 37, 70) if use_acc else None
+        vec = rnd(2, cout) if use_vec else None
+        for dt in (torch.float32, torch.bfloat16):
+            args = (x.to(dt), w if dw else w.to(dt), b,
+                    None if acc is None else acc.to(dt), vec)
+            kw = dict(k=k, dilation=dil, depthwise=dw, act=act)
+            _compare(torch, conv_chw(*args, **kw),
+                     conv_chw(*args, **kw, use_kernels=False),
+                     f"conv_chw k={k} dil={dil} dw={dw} {act} acc={use_acc} "
+                     f"vec={use_vec} {dt}")
+    block_cases = [  # stride, cin, t, cout, residual, h, w
+        (1, 16, 6, 24, False, 13, 21),
+        (1, 32, 6, 32, True, 9, 11),
+        (1, 32, 1, 16, False, 17, 30),
+        (2, 32, 1, 16, False, 14, 22),
+        (2, 96, 6, 160, False, 10, 6),
+        (1, 160, 6, 320, False, 3, 5),
+    ]
+    for stride, cin, t, cout, residual, h, w in block_cases:
+        cmid = cin * t
+        wts = ((rnd(cmid, cin, 1, 1, scale=0.2), rnd(cmid, scale=0.1))
+               if t != 1 else (None, None)) + (
+            rnd(cmid, 1, 3, 3, scale=0.3), rnd(cmid, scale=0.1),
+            rnd(cout, cmid, 1, 1, scale=0.1), rnd(cout, scale=0.1))
+        x = rnd(2, cin, h, w)
+        for dt in (torch.float32, torch.bfloat16):
+            ws = tuple(None if v is None else
+                       (v.to(dt) if j in (0, 4) else v)
+                       for j, v in enumerate(wts))
+            if stride == 2:
+                got = inv_res_s2_chw(x.to(dt), *ws)
+                want = inv_res_s2_chw(x.to(dt), *ws, use_kernels=False)
+            else:
+                got = inv_res_chw(x.to(dt), *ws, residual=residual)
+                want = inv_res_chw(x.to(dt), *ws, residual=residual,
+                                   use_kernels=False)
+            _compare(torch, got, want, f"inv_res s{stride} {cin}x{t}->{cout} "
+                     f"res={residual} {h}x{w} {dt}")
+
+
+DECODER_KERNELS = ("conv_chw", "pw_chain_chw", "pw_multi_chw",
+                   "sep_conv_chw", "pair_op_chw", "cell_op_chw", "resize_chw")
+# A valid genotype of the search space whose decoder takes the paths
+# arch0's does not: a two-branch node before the pool's source (pair_op_chw)
+# and two collected entries (pw_multi_chw, the head without its concat).
+# At 512x512 frames its decoder is 128 wide, so the engine ends in the
+# W-first tail (upsample_argmax_flat). Its frames are the second path.
+G2 = [[2, [0, 1, 5, 3], [2, 1, 4, 0], [3, 2, 8, 9]], [[3, 2], [2, 4], [1, 0]]]
+H2 = W2 = 512
+G2_ONLY = ("pw_multi_chw", "pair_op_chw", "upsample_argmax_flat")
+
+
+def record_decoder(torch, dec, taps):
+    """Run the folded decoder on taps with every kernel wrapper it calls
+    wrapped to record (name, wrapper, bound arguments). Returns (logits,
+    calls)."""
+    import inspect
+    import segtpu_torch.models.fast_decoder as fd
+    saved = {n: getattr(fd, n) for n in DECODER_KERNELS}
+    calls = []
+
+    def wrap(name, fn):
+        def rec(*args, **kw):
+            out = fn(*args, **kw)
+            ba = inspect.signature(fn).bind(*args, **kw)
+            ba.apply_defaults()
+            calls.append((name, fn, dict(ba.arguments)))
+            return out
+        return rec
+
+    for n, f in saved.items():
+        setattr(fd, n, wrap(n, f))
+    try:
+        with torch.inference_mode():
+            logits = dec(taps)
+    finally:
+        for n, f in saved.items():
+            setattr(fd, n, f)
+    return logits, calls
+
+
+def replay(fn, a, use_kernels: bool):
+    kw = dict(a)
+    kw["use_kernels"] = use_kernels
+    return fn(**kw)
+
+
+def _nb(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _branch_ops(br, x):
+    """(dot flops, f32 flops) of one cell branch on x."""
+    if br["kind"] not in ("conv", "sep"):
+        return 0, 0
+    b, c, h, w = x.shape
+    k = br["k"]
+    if br["kind"] == "conv":
+        return 2 * b * h * w * c * br["w"].shape[0] * k * k, 0
+    return 2 * b * h * w * c * br["wpw"].shape[0], 2 * b * h * w * c * k * k
+
+
+def call_work(name, a, out):
+    """(bytes, dot flops, f32 flops) one decoder call must move and do:
+    each input read once, the output written once, intermediates kept
+    on chip; dense and 1x1 products as dot flops, depthwise and
+    interpolation arithmetic as f32 flops."""
+    if name == "conv_chw":
+        x = a["x"]
+        nb, dot, f32 = conv_work(x.shape, out.shape[1], a["k"], a["depthwise"],
+                                 x.element_size())
+        return nb + _nb(a["acc"]), dot, f32
+    if name in ("pw_chain_chw", "pw_multi_chw"):
+        xs = [a["x"]] if name == "pw_chain_chw" else list(a["xs"])
+        ws = [w for w, _ in a["stages"]] if name == "pw_chain_chw" \
+            else list(a["ws"])
+        b, _, h, w = xs[0].shape
+        return (_nb(*xs, out), sum(2 * b * h * w * wt.shape[0] * wt.shape[1]
+                                   for wt in ws), 0)
+    if name == "sep_conv_chw":
+        br = {"kind": "sep", "k": a["k"], "wpw": a["w_pw"]}
+        dot, f32 = _branch_ops(br, a["x"])
+        return _nb(a["x"], a["acc"], out), dot, f32
+    if name == "pair_op_chw":
+        tot = [0, 0]
+        for x, wts, op in ((a["x1"], a["weights1"], a["op1"]),
+                           (a["x2"], a["weights2"], a["op2"])):
+            br = {"kind": op[0], "k": op[1], "w": wts[0],
+                  "wpw": wts[2] if op[0] == "sep" else None}
+            d, f = _branch_ops(br, x)
+            tot[0] += d
+            tot[1] += f
+        return _nb(a["x1"], a["x2"], out), tot[0], tot[1]
+    if name == "cell_op_chw":
+        x = a["srcs"][0]
+        dot = f32 = 0
+        for branches in a["nodes_desc"]:
+            for br in branches:
+                d, f = _branch_ops(br, x)
+                dot += d
+                f32 += f
+        return _nb(*a["srcs"], out), dot, f32
+    if name == "resize_chw":
+        chain = a["acc_chain"]
+        nb = _nb(a["x"], a["acc"], out) + (_nb(chain[0]) if chain else 0)
+        b, _, oh, ow = out.shape
+        dot = sum(2 * b * oh * ow * w.shape[0] * w.shape[1]
+                  for w, _ in chain[1]) if chain else 0
+        # 6 multiplies and 3 adds per output element, 1 add for acc
+        return nb, dot, 10 * out.numel()
+    raise ValueError(name)
+
+
+def _lib_branch(torch, br, x):
+    import torch.nn.functional as F
+    dt = x.dtype
+    if br["kind"] == "skip":
+        return x
+    if br["kind"] == "none":
+        return None
+    k, dil = br["k"], br["dil"]
+    pad = dil * (k // 2)
+    if br["kind"] == "conv":
+        return F.relu(F.conv2d(x, br["w"].to(dt), br["b"].to(dt), padding=pad,
+                               dilation=dil))
+    mid = F.relu(F.conv2d(x, br["wdw"].to(dt), br["bdw"].to(dt), padding=pad,
+                          dilation=dil, groups=x.shape[1]))
+    return F.relu(F.conv2d(mid, br["wpw"].to(dt), br["bpw"].to(dt)))
+
+
+def _lib_node(torch, pairs, add, vec):
+    tot = None
+    for br, x in pairs:
+        y = _lib_branch(torch, br, x)
+        if y is not None:
+            tot = y if tot is None else tot + y
+    if add is not None:
+        tot = tot + add
+    if vec is not None:
+        tot = tot + vec.to(tot.dtype)[:, :, None, None]
+    return tot
+
+
+def library_call(torch, name, a):
+    """The call's function as PyTorch library calls in its dtype (cuDNN
+    convolutions, ``F.interpolate``), the yardstick and the independent
+    reference of each decoder kernel."""
+    import torch.nn.functional as F
+    if name == "conv_chw":
+        x = a["x"]
+        k, dil = a["k"], a["dilation"]
+        dt = x.dtype
+        y = F.conv2d(x, a["w"].to(dt), a["bias"].to(dt), padding=dil * (k // 2),
+                     dilation=dil, groups=x.shape[1] if a["depthwise"] else 1)
+        y = {"relu": F.relu, "relu6": F.relu6}.get(a["act"], lambda v: v)(y)
+        if a["acc"] is not None:
+            y = y + a["acc"]
+        if a["vec_acc"] is not None:
+            y = y + a["vec_acc"].to(dt)[:, :, None, None]
+        return y
+    if name == "pw_chain_chw":
+        y = a["x"]
+        for w, b in a["stages"]:
+            y = F.relu(F.conv2d(y, w.to(y.dtype), b.to(y.dtype)))
+        return y
+    if name == "pw_multi_chw":
+        x = torch.cat(list(a["xs"]), 1)
+        return F.conv2d(x, torch.cat(list(a["ws"]), 1).to(x.dtype),
+                        a["bias"].to(x.dtype))
+    if name == "sep_conv_chw":
+        br = {"kind": "sep", "k": a["k"], "dil": a["dilation"],
+              "wdw": a["w_dw"], "bdw": a["b_dw"], "wpw": a["w_pw"],
+              "bpw": a["b_pw"]}
+        return _lib_node(torch, [(br, a["x"])], a["acc"], a["vec_acc"])
+    if name == "pair_op_chw":
+        from segtpu_torch.kernels.chw_ops import _op_branch
+        return _lib_node(torch, [
+            (_op_branch(a["op1"], a["weights1"]), a["x1"]),
+            (_op_branch(a["op2"], a["weights2"]), a["x2"])], None, None)
+    if name == "cell_op_chw":
+        entries = list(a["srcs"])
+        for branches in a["nodes_desc"]:
+            vec = None
+            pairs = []
+            for br in branches:
+                if br["kind"] == "vec":
+                    vec = br["vec"] if vec is None else vec + br["vec"]
+                elif br["kind"] != "none":
+                    pairs.append((br, entries[br["entry"]]))
+            y = _lib_node(torch, pairs, None, vec) if pairs else \
+                vec.to(entries[0].dtype)[:, :, None, None].expand_as(entries[0])
+            entries.append(y)
+        out = None
+        for c in a["collect"]:
+            out = entries[c] if out is None else out + entries[c]
+        return out
+    if name == "resize_chw":
+        y = F.interpolate(a["x"], size=tuple(a["out_hw"]), mode="bilinear",
+                          align_corners=a["align_corners"])
+        if a["acc"] is not None:
+            y = y + a["acc"]
+        if a["acc_chain"] is not None:
+            y = y + library_call(torch, "pw_chain_chw", {
+                "x": a["acc_chain"][0], "stages": a["acc_chain"][1]})
+        return y
+    raise ValueError(name)
+
+
+def _lib_compare(torch, got, ref, what, tol):
+    """Worst error of a kernel's output against an independent library
+    reference, as a share of the reference's largest magnitude."""
+    err = ((got.float() - ref.float()).abs().max()
+           / ref.float().abs().max().clamp_min(1e-30)).item()
+    print(f"[decoder] {what}: vs library f32 relative worst={err!r}")
+    check(err <= tol, f"{what}: {err} > {tol} of the library reference")
+    return err
+
+
+def decoder_calls(torch, genotype, hw, dtype, batch):
+    """(model, folded encoder and decoder, front output, taps, logits,
+    recorded decoder calls) for seeded frames through the kernels."""
+    from segtpu_torch.kernels.front import normalize_s2d_front
+    from segtpu_torch.models.fast_decoder import fold_decoder
+    from segtpu_torch.models.fast_encoder import fold_encoder
+    model = make_model(torch, genotype)
+    enc = fold_encoder(model.encoder, dtype).to("cuda")
+    dec = fold_decoder(model.decoder, dtype).to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    img = torch.randint(0, 256, (batch, *hw, 3), generator=g, device="cuda",
+                        dtype=torch.uint8)
+    x12 = normalize_s2d_front(img, out_dtype=dtype)
+    with torch.inference_mode():
+        taps = enc(x12)
+    logits, calls = record_decoder(torch, dec, taps)
+    return model, img, taps, logits, calls
+
+
+def phase_decoder(torch, res):
+    """Phase 5 (see the module doc). Adds each decoder kernel's launches
+    (path, worst error, kernel/plain/library ms, bytes and operations) to
+    ``res``; returns each launch's times and the G2 path's logits."""
+    for n in DECODER_KERNELS + ("upsample_argmax_flat",):
+        res.setdefault(n, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                               library_ms=0.0, bytes=0, dot=0, f32=0, n=0))
+    from segtpu_torch.models import ARCHS
+    stage_ms = []
+    paths = (("main", ARCHS["arch0"], (H, W)), ("G2", G2, (H2, W2)))
+    for path, genotype, hw in paths:
+        model, img, taps, logits, calls = decoder_calls(
+            torch, genotype, hw, torch.bfloat16, N)
+        print(f"[decoder] {path} {N}x{hw[0]}x{hw[1]}: calls "
+              f"{[c[0] for c in calls]}")
+        with torch.inference_mode():
+            for i, (name, fn, a) in enumerate(calls):
+                # the main path's kernels are measured on it, the rest on G2
+                if path == "G2" and name not in G2_ONLY:
+                    continue
+                got = replay(fn, a, True)
+                want = replay(fn, a, False)
+                torch.cuda.synchronize()
+                shape = tuple(got.shape)
+                r = res[name]
+                r["max_abs_err"] = max(r["max_abs_err"], _compare(
+                    torch, got, want, f"{path} call {i:2d} {name} {shape}"))
+                ms = cuda_ms(lambda: replay(fn, a, True), 5)
+                plain_ms = cuda_ms(lambda: replay(fn, a, False), 1, warmup=1)
+                lib_ms = cuda_ms(lambda: library_call(torch, name, a), 5)
+                print(f"[timing] {path} call {i:2d} {name} {shape}: "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                      f"{lib_ms:.4f} ms")
+                stage_ms.append((path, name, list(shape), ms, plain_ms,
+                                 lib_ms))
+                nb, dot, f32 = call_work(name, a, got)
+                for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                               ("library_ms", lib_ms), ("bytes", nb),
+                               ("dot", dot), ("f32", f32), ("n", 1)):
+                    r[key] += v
+        if path == "main":
+            check_library_reference(torch, model, img, taps, logits)
+        else:
+            flat_tail(torch, logits, res["upsample_argmax_flat"], stage_ms)
+    check(res["pw_multi_chw"]["n"] > 0 and res["pair_op_chw"]["n"] > 0,
+          "the G2 path did not reach pw_multi_chw and pair_op_chw")
+    decoder_f32(torch)
+    phase_decoder_forms(torch)
+    return stage_ms
+
+
+def flat_tail(torch, logits, r, stage_ms):
+    """The W-first tail on G2's decoder logits -> 512x512 masks, against
+    its plain twin (masks equal on >= 99.99 %, every mismatch a near-tie
+    of the W-first sums), timed with F.interpolate + argmax."""
+    import torch.nn.functional as F
+    from segtpu_torch.kernels.upsample_argmax import (
+        upsample_argmax, upsample_argmax_flat, upsample_argmax_flat_plain)
+    b, k, h, w = logits.shape
+    flat = logits.reshape(b, k, h * w)
+    for x in (flat, flat.float()):
+        got = upsample_argmax_flat(x, (h, w), (H2, W2))
+        want = upsample_argmax_flat_plain(x, (h, w), (H2, W2))
+        torch.cuda.synchronize()
+        check(got.shape == (b, H2, W2), f"flat tail shape {tuple(got.shape)}")
+        rate = (got == want).float().mean().item()
+        print(f"[decoder] flat tail {x.dtype}: agreement={rate!r}")
+        check(rate >= 0.9999, f"flat tail agreement {rate} < 99.99 %")
+        r["max_abs_err"] = max(r["max_abs_err"],
+                               (got.int() - want.int()).abs().max().item())
+    ms = cuda_ms(lambda: upsample_argmax_flat(flat, (h, w), (H2, W2)), 20)
+    plain_ms = cuda_ms(lambda: upsample_argmax_flat_plain(flat, (h, w),
+                                                          (H2, W2)), 3)
+    lib_ms = cuda_ms(lambda: F.interpolate(
+        logits.float(), size=(H2, W2), mode="bilinear",
+        align_corners=True).argmax(1), 10)
+    four_d_ms = cuda_ms(lambda: upsample_argmax(logits, (H2, W2)), 20)
+    print(f"[timing] G2 flat tail {tuple(logits.shape)} -> {H2}x{W2}: "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+          f"H-first tail {four_d_ms:.4f} ms")
+    stage_ms.append(("G2", "upsample_argmax_flat", [b, H2, W2], ms, plain_ms,
+                     lib_ms))
+    r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, n=1,
+             bytes=logits.numel() * logits.element_size() + b * H2 * W2,
+             dot=0, f32=b * k * W2 * (3 * h + 3 * H2 + 1))
+
+
+def phase_decoder_forms(torch):
+    """The decoder kernels' forms neither path reaches, at odd sizes
+    (tiles cut by the image edge), f32 and bf16, each against its plain
+    twin: a cell whose collect sums three entries (the collect kernel),
+    skip, none and vector-only nodes, a sep conv with acc and vec_acc, a
+    pair of two dense convs, a three-stage chain, three sources."""
+    from segtpu_torch.kernels.chw_ops import (cell_op_chw, pair_op_chw,
+                                              pw_chain_chw, pw_multi_chw,
+                                              sep_conv_chw)
+    from segtpu_torch.kernels.resize_chw import resize_chw
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    c, hw = 16, (37, 70)
+    conv = {"kind": "conv", "k": 3, "dil": 2, "w": rnd(c, c, 3, 3, scale=0.1),
+            "b": rnd(c, scale=0.1)}
+    sep = {"kind": "sep", "k": 5, "dil": 1, "wdw": rnd(c, 1, 5, 5, scale=0.2),
+           "bdw": rnd(c, scale=0.1), "wpw": rnd(c, c, 1, 1, scale=0.2),
+           "bpw": rnd(c, scale=0.1)}
+    vec = rnd(2, c).abs()
+    w1 = rnd(c, c, 1, 1, scale=0.2)
+    nodes = [[dict(conv, entry=0), {"kind": "skip", "entry": 1}],
+             [{"kind": "none"}, {"kind": "vec", "vec": vec}],
+             [dict(sep, entry=2), {"kind": "none"}],
+             [{"kind": "skip", "entry": 3}, dict(sep, entry=0)]]
+    stages = [(rnd(24, c, 1, 1, scale=0.2), rnd(24, scale=0.1)),
+              (rnd(20, 24, 1, 1, scale=0.2), rnd(20, scale=0.1)),
+              (rnd(c, 20, 1, 1, scale=0.2), rnd(c, scale=0.1))]
+    for dt in (torch.float32, torch.bfloat16):
+        x, y = rnd(2, c, *hw).to(dt), rnd(2, c, *hw).to(dt)
+        small = rnd(2, c, 19, 35).to(dt)
+        cases = {
+            "cell collect [2, 4, 5]": lambda uk: cell_op_chw(
+                [x, y], nodes, [2, 4, 5], use_kernels=uk),
+            "sep acc vec": lambda uk: sep_conv_chw(
+                x, sep["wdw"], sep["bdw"], sep["wpw"], sep["bpw"], y, vec,
+                k=5, dilation=3, use_kernels=uk),
+            "pair conv conv": lambda uk: pair_op_chw(
+                x, (conv["w"], conv["b"]), y, (conv["w"][:, :, :1, :1],
+                                              conv["b"]),
+                op1=("conv", 3, 12), op2=("conv", 1, 1), use_kernels=uk),
+            "chain 3 stages": lambda uk: pw_chain_chw(x, stages,
+                                                      use_kernels=uk),
+            "multi 3 sources": lambda uk: pw_multi_chw(
+                [x, y, x], [w1, w1.flip(0), w1], conv["b"], act="relu",
+                use_kernels=uk),
+            "resize chain": lambda uk: resize_chw(
+                small, hw, acc_chain=(x, stages), align_corners=False,
+                use_kernels=uk),
+        }
+        for what, fn in cases.items():
+            _compare(torch, fn(True), fn(False), f"{what} {dt}")
+
+
+def check_library_reference(torch, model, img, taps, logits):
+    """The bf16 kernels' taps and logits on the b8 frames against the
+    unfolded model run in f32 through cuDNN (no TF32), an implementation
+    independent of the kernels and their twins: worst error <= 3 % of the
+    largest tap value and <= 5 % of the largest logit."""
+    from segtpu_torch.kernels.front import normalize_s2d_front
+    m32 = model.to("cuda").float().eval()
+    with torch.inference_mode():
+        x32 = normalize_s2d_front(img, out_dtype=torch.float32)
+        taps32 = m32.encoder(x32, input_format="s2d12")
+        logits32 = m32.decoder(taps32)
+        for i, (t, t32) in enumerate(zip(taps, taps32)):
+            _lib_compare(torch, t, t32, f"tap {i} {tuple(t.shape)}", 3e-2)
+        _lib_compare(torch, logits, logits32, f"logits {tuple(logits.shape)}",
+                     5e-2)
+    model.to("cpu")
+
+
+def decoder_f32(torch):
+    """Every decoder call of both paths in f32 at 2x128x256 (G2 at
+    2x128x128): kernel against its plain twin at rtol = atol = 1e-4 and
+    against its library version at 1e-4 of the largest value."""
+    from segtpu_torch.models import ARCHS
+    for genotype, hw in ((ARCHS["arch0"], (128, 256)), (G2, (128, 128))):
+        *_, calls = decoder_calls(torch, genotype, hw, torch.float32, 2)
+        with torch.inference_mode():
+            for i, (name, fn, a) in enumerate(calls):
+                got = replay(fn, a, True)
+                _compare(torch, got, replay(fn, a, False),
+                         f"f32 call {i:2d} {name} {tuple(got.shape)}")
+                _lib_compare(torch, got, library_call(torch, name, a),
+                             f"f32 call {i:2d} {name}", 1e-4)
+
+
+def make_model(torch, genotype=None):
     from segtpu_torch.core.layers import ConvBN
     from segtpu_torch.models import ARCHS, create_segmenter
     gen = torch.Generator().manual_seed(0)
-    model = create_segmenter(ARCHS["arch0"], K, generator=gen, device="cpu")
+    model = create_segmenter(genotype or ARCHS["arch0"], K, generator=gen,
+                             device="cpu")
     with torch.no_grad():     # BatchNorm that is not the identity
         for m in model.modules():
             if isinstance(m, ConvBN):
@@ -173,10 +789,45 @@ def make_model(torch):
     return model
 
 
+# launches over one b8 predict_batch of each path
+PATH_LAUNCHES = {"front": 1, "conv_chw": 4, "inv_res_chw": 13,
+                 "inv_res_s2_chw": 4, "pw_chain_chw": 1, "pw_multi_chw": 0,
+                 "sep_conv_chw": 3, "pair_op_chw": 0, "cell_op_chw": 3,
+                 "resize_chw": 3, "upsample_argmax": 1,
+                 "upsample_argmax_flat": 0}
+G2_LAUNCHES = {"front": 1, "conv_chw": 5, "inv_res_chw": 13,
+               "inv_res_s2_chw": 4, "pw_chain_chw": 2, "pw_multi_chw": 1,
+               "sep_conv_chw": 3, "pair_op_chw": 3, "cell_op_chw": 3,
+               "resize_chw": 3, "upsample_argmax": 0,
+               "upsample_argmax_flat": 1}
+
+
+def kernel_wrappers():
+    from segtpu_torch.kernels import chw_ops
+    from segtpu_torch.kernels.front import normalize_s2d_front
+    from segtpu_torch.kernels.resize_chw import resize_chw
+    from segtpu_torch.kernels.upsample_argmax import (upsample_argmax,
+                                                      upsample_argmax_flat)
+    out = {"front": normalize_s2d_front}
+    for n in ("conv_chw", "inv_res_chw", "inv_res_s2_chw", "pw_chain_chw",
+              "pw_multi_chw", "sep_conv_chw", "pair_op_chw", "cell_op_chw"):
+        out[n] = getattr(chw_ops, n)
+    out.update(resize_chw=resize_chw, upsample_argmax=upsample_argmax,
+               upsample_argmax_flat=upsample_argmax_flat)
+    return out
+
+
+def reset_counts():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {n: fn.launches for n, fn in kernel_wrappers().items()}
+
+
 def phase_slice(torch):
     from segtpu_torch.engine import Segmenter
-    from segtpu_torch.kernels.front import normalize_s2d_front
-    from segtpu_torch.kernels.upsample_argmax import upsample_argmax
     model = make_model(torch)
     seg = Segmenter(model, device="cuda")
     ref = Segmenter(model, device="cuda", use_kernels=False)
@@ -184,16 +835,17 @@ def phase_slice(torch):
     frames = rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)
 
     # the main path: predict_batch at b8, counts read around it alone
-    normalize_s2d_front.launches = upsample_argmax.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     masks = seg.predict_batch(frames)
     cold_s = time.perf_counter() - t0
-    launches = {"front": normalize_s2d_front.launches,
-                "upsample_argmax": upsample_argmax.launches}
+    launches = read_counts()
     print(f"[slice] predict_batch b8 {H}x{W}: launches={launches} "
           f"first call {cold_s:.2f} s")
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[n] > 0 for n, v in PATH_LAUNCHES.items() if v),
           f"a kernel of the main path was not launched: {launches}")
+    check(launches == PATH_LAUNCHES,
+          f"main-path launches {launches}, expected {PATH_LAUNCHES}")
     check(masks.shape == (N, H, W) and masks.dtype == np.uint8,
           f"mask shape {masks.shape} {masks.dtype}")
     check(int(masks.max()) < K, "mask class out of range")
@@ -205,17 +857,31 @@ def phase_slice(torch):
 
     # the pad path: 1000x1500 -> padded 1024x1504, cropped back
     one = rng.integers(0, 256, (1000, 1500, 3), dtype=np.uint8)
-    normalize_s2d_front.launches = upsample_argmax.launches = 0
+    reset_counts()
     m1 = seg.predict(one)
-    pad_launches = {"front": normalize_s2d_front.launches,
-                    "upsample_argmax": upsample_argmax.launches}
-    check(all(v > 0 for v in pad_launches.values()),
+    pad_launches = read_counts()
+    check(all(pad_launches[n] > 0 for n, v in PATH_LAUNCHES.items() if v),
           f"pad path missed a kernel: {pad_launches}")
     check(m1.shape == (1000, 1500), f"pad-path mask shape {m1.shape}")
     rate1 = float((m1 == ref.predict(one)).mean())
     print(f"[slice] predict 1000x1500: launches={pad_launches} "
           f"agreement={rate1!r}")
     check(rate1 >= 0.999, f"pad-path agreement {rate1} < 99.9 %")
+
+    # an odd frame: normalized on the card, zero-padded and packed by
+    # space-to-depth into the same folded encoder (no front kernel)
+    odd = rng.integers(0, 256, (999, 1501, 3), dtype=np.uint8)
+    reset_counts()
+    m3 = seg.predict(odd)
+    odd_launches = read_counts()
+    check(odd_launches["front"] == 0 and all(
+        odd_launches[n] > 0 for n, v in PATH_LAUNCHES.items()
+        if v and n != "front"), f"odd-frame path launches {odd_launches}")
+    rate3 = float((m3 == ref.predict(odd)).mean())
+    print(f"[slice] predict 999x1501: launches={odd_launches} "
+          f"agreement={rate3!r}")
+    check(m3.shape == (999, 1501) and rate3 >= 0.999,
+          f"odd-frame agreement {rate3} < 99.9 % or shape {m3.shape}")
 
     logits = seg.predict(frames[:1], return_logits=True)
     check(logits.shape == (1, K, H, W) and bool(np.isfinite(logits).all()),
@@ -230,6 +896,24 @@ def phase_slice(torch):
     rate_cpu = float((on_gpu == on_cpu).mean())
     print(f"[slice] f32 2x64x128 card vs CPU: agreement={rate_cpu!r}")
     check(rate_cpu >= 0.999, f"card vs CPU agreement {rate_cpu} < 99.9 %")
+
+    # the second path: genotype G2 on 8 frames of 512x512, whose decoder
+    # runs pair_op_chw and pw_multi_chw and ends in the W-first tail
+    seg2 = Segmenter(make_model(torch, G2), device="cuda")
+    ref2 = Segmenter(make_model(torch, G2), device="cuda", use_kernels=False)
+    frames2 = rng.integers(0, 256, (N, H2, W2, 3), dtype=np.uint8)
+    reset_counts()
+    m2 = seg2.predict_batch(frames2)
+    g2_launches = read_counts()
+    print(f"[slice] G2 predict_batch b8 {H2}x{W2}: launches={g2_launches}")
+    check(g2_launches == G2_LAUNCHES,
+          f"G2-path launches {g2_launches}, expected {G2_LAUNCHES}")
+    rate2 = float((m2 == ref2.predict_batch(frames2)).mean())
+    print(f"[slice] G2 b8 masks vs use_kernels=False: agreement={rate2!r}")
+    check(rate2 >= 0.999, f"G2 slice agreement {rate2} < 99.9 %")
+    launches = {n: g2_launches[n] if n in G2_ONLY else v
+                for n, v in launches.items()}
+    del seg2, ref2
 
     stream_in = [frames[i, :512, :1024] for i in range(3)]
     streamed = list(seg.predict_stream(stream_in))
@@ -256,7 +940,7 @@ def phase_timing(torch, img, logits, seg, ref, frames):
         align_corners=True).argmax(1), 10)
     x = torch.from_numpy(frames).cuda()
     t["slice_b8"] = cuda_ms(lambda: seg.predict_batch(x), 10)
-    t["slice_b8_plain_ends"] = cuda_ms(lambda: ref.predict_batch(x), 5)
+    t["slice_b8_plain_kernels"] = cuda_ms(lambda: ref.predict_batch(x), 5)
     for k, v in t.items():
         print(f"[timing] {k}: {v:.4f} ms")
     print(f"[timing] slice b8: {N * 1000.0 / t['slice_b8']:.1f} images/s "
@@ -264,8 +948,39 @@ def phase_timing(torch, img, logits, seg, ref, frames):
     return t
 
 
-def bounds():
-    """Least time for the card: max(bytes / HBM rate, f32 ops / peak)."""
+def conv_work(x_shape, cout: int, k: int, depthwise: bool, elt: int):
+    """(bytes, dot flops, f32 flops) a conv_chw call must move and do:
+    x read once, the weight and bias read once, the output written
+    once; dense products count as dot flops, depthwise as f32 flops."""
+    b, c, h, w = x_shape
+    wbytes = (c * k * k * 4) if depthwise else (cout * c * k * k * elt)
+    nbytes = b * c * h * w * elt + wbytes + cout * 4 + b * cout * h * w * elt
+    flops = 2 * b * cout * h * w * k * k * (1 if depthwise else c)
+    return (nbytes, 0, flops) if depthwise else (nbytes, flops, 0)
+
+
+def inv_res_work(x_shape, cmid: int, cout: int, stride: int, expand: bool,
+                 elt: int):
+    """(bytes, dot flops, f32 flops) of one fused block: x read once,
+    weights once, the output written once (the expanded tensor never
+    leaves the chip); expand and project are dot flops, the 3x3
+    depthwise f32 flops."""
+    b, cin, h, w = x_shape
+    ho, wo = h // stride, w // stride
+    wbytes = ((cmid * cin * elt + cmid * 4) if expand else 0) \
+        + cmid * 10 * 4 + cout * cmid * elt + cout * 4
+    nbytes = b * cin * h * w * elt + wbytes + b * cout * ho * wo * elt
+    dot = 2 * b * (h * w * cin * cmid if expand else 0) \
+        + 2 * b * ho * wo * cmid * cout
+    return nbytes, dot, 2 * b * ho * wo * cmid * 9
+
+
+def bounds(work):
+    """Least time for the card: the largest of the bytes over the HBM
+    rate, the dot products over the bf16 tensor-core peak and the other
+    f32 arithmetic over the f32 CUDA-core peak (separate pipes, so they
+    can overlap). ``work`` holds the encoder and decoder kernels' bytes
+    and operations summed over their measured launches."""
     hp2, wp2 = H // 2, W // 2
     front_bytes = N * H * W * 3 + N * 12 * hp2 * wp2 * 2
     front_ops = N * 12 * hp2 * wp2 * 2                   # one mul, one add
@@ -274,12 +989,36 @@ def bounds():
     # H pass shared by the output columns: 2 mul + 1 add per (row, input
     # column); W pass: 2 mul + 1 add per output pixel; 1 compare each
     tail_ops = N * K * H * (3 * w + 4 * W)
+    work = dict(work)
+    work["front"] = dict(bytes=front_bytes, dot=0, f32=front_ops)
+    work["upsample_argmax"] = dict(bytes=tail_bytes, dot=0, f32=tail_ops)
     out = {}
-    for name, b, o in (("front", front_bytes, front_ops),
-                       ("upsample_argmax", tail_bytes, tail_ops)):
-        tb, to = b / HBM_BYTES_PER_S * 1e3, o / F32_FLOP_PER_S * 1e3
-        out[name] = (max(tb, to), "bytes" if tb >= to else "operations")
+    for name, r in work.items():
+        times = {"bytes": r["bytes"] / HBM_BYTES_PER_S * 1e3,
+                 "operations": max(r["dot"] / BF16_FLOP_PER_S,
+                                   r["f32"] / F32_FLOP_PER_S) * 1e3}
+        by = max(times, key=times.get)
+        out[name] = (times[by], by)
     return out
+
+
+# name: (source under segtpu_torch/csrc, the TPU kernel it replaces)
+KERNEL_ROWS = {
+    "front": ("front.cu", "segtpu/kernels/front.py:80"),
+    "conv_chw": ("conv_chw.cu", "segtpu/kernels/chw_ops.py:731"),
+    "inv_res_chw": ("inv_res.cu", "segtpu/kernels/chw_ops.py:1101"),
+    "inv_res_s2_chw": ("inv_res.cu", "segtpu/kernels/chw_ops.py:1345"),
+    "pw_chain_chw": ("pointwise.cu", "segtpu/kernels/chw_ops.py:367"),
+    "pw_multi_chw": ("pointwise.cu", "segtpu/kernels/chw_ops.py:285"),
+    "resize_chw": ("resize.cu", "segtpu/kernels/resize_chw.py:100"),
+    "sep_conv_chw": ("cell.cu", "segtpu/kernels/chw_ops.py:853"),
+    "pair_op_chw": ("cell.cu", "segtpu/kernels/chw_ops.py:908"),
+    "cell_op_chw": ("cell.cu", "segtpu/kernels/chw_ops.py:1760"),
+    "upsample_argmax": ("upsample_argmax.cu",
+                        "segtpu/kernels/upsample_argmax.py:221"),
+    "upsample_argmax_flat": ("upsample_argmax.cu",
+                             "segtpu/kernels/upsample_argmax.py:413"),
+}
 
 
 def main() -> None:
@@ -298,33 +1037,40 @@ def main() -> None:
     phase_build()
     img, front_err = phase_front(torch)
     logits, tail_err = phase_tail(torch)
+    work, stage_ms = phase_encoder(torch, img)
+    dec_ms = phase_decoder(torch, work)
     seg, ref, frames, launches, _ = phase_slice(torch)
     t = phase_timing(torch, img, logits, seg, ref, frames)
-    b = bounds()
-    kernels = [
-        {"name": "front", "route": "cuda",
-         "source": "segtpu_torch/csrc/front.cu",
-         "replaces": "segtpu/kernels/front.py:80",
-         "launches": launches["front"], "max_abs_err": front_err,
-         "ms": t["front"], "plain_ms": t["front_plain"],
-         "bound_ms": b["front"][0], "bound_by": b["front"][1],
-         "library_ms": None},
-        {"name": "upsample_argmax", "route": "cuda",
-         "source": "segtpu_torch/csrc/upsample_argmax.cu",
-         "replaces": "segtpu/kernels/upsample_argmax.py:221",
-         "launches": launches["upsample_argmax"], "max_abs_err": tail_err,
-         "ms": t["tail"], "plain_ms": t["tail_plain"],
-         "bound_ms": b["upsample_argmax"][0],
-         "bound_by": b["upsample_argmax"][1],
-         "library_ms": t["tail_library"]},
-    ]
+    for name, r in work.items():
+        for key in ("ms", "plain_ms", "library_ms"):
+            t[f"{name}_{key}_path_sum"] = r[key]
+        print(f"[timing] {name} over its {r['n']} measured launches: "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms")
+    b = bounds(work)
+    work["front"] = dict(max_abs_err=front_err, ms=t["front"],
+                         plain_ms=t["front_plain"], library_ms=None)
+    work["upsample_argmax"] = dict(max_abs_err=tail_err, ms=t["tail"],
+                                   plain_ms=t["tail_plain"],
+                                   library_ms=t["tail_library"])
+    kernels = []
+    for name, (src, replaces) in KERNEL_ROWS.items():
+        r = work[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"segtpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": launches[name],
+            "path": "G2 b8 512x512" if name in G2_ONLY else "main b8 1024x2048",
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": b[name][0],
+            "bound_by": b[name][1], "library_ms": r["library_ms"]})
     if "--profile" in sys.argv[1:]:
         profile(torch, seg, frames)
     gpu = gpu_line()
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"gpu": gpu, "kernels": kernels, "timing_ms": t}, f,
-                  indent=1)
+        json.dump({"gpu": gpu, "kernels": kernels, "timing_ms": t,
+                   "encoder_stage_ms": stage_ms, "decoder_call_ms": dec_ms},
+                  f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

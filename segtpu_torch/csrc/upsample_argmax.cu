@@ -82,6 +82,72 @@ __global__ void upsample_argmax_kernel(
   out[((size_t)b * ho + oy) * wo + ox] = (uint8_t)idx;
 }
 
+// The W-first order of segtpu/kernels/upsample_argmax.py::
+// upsample_argmax_flat (Pallas _kernel_flat, which the JAX engine runs for
+// decoder widths of at most 128): the W pass first on both input rows,
+//   z(r) = b0 * x[r, c0] + b1 * x[r, c1]
+// with the W weights bf16-rounded in bf16 mode (the TPU kernel's bf16 dot
+// operands; bf16 products are exact, so its f32 accumulation rounds once)
+// and z kept in f32, then the H pass v = a0 * z(r0) + a1 * z(r1) with the f32
+// H weights, then the same argmax. The TPU kernel's flat [B, K, h * w] input
+// is the same memory as the contiguous [B, K, h, w] tensor here.
+template <typename T>
+__global__ void upsample_argmax_flat_kernel(
+    const T* __restrict__ x, uint8_t* __restrict__ out, int K, int h, int w,
+    int ho, int wo, const int* __restrict__ rows, const float* __restrict__ rw,
+    const int* __restrict__ cols, const float* __restrict__ cw) {
+  const int ox = blockIdx.x * blockDim.x + threadIdx.x;
+  const int oy = blockIdx.y;
+  const int b = blockIdx.z;
+  if (ox >= wo) return;
+  const int r0 = rows[oy], r1 = rows[ho + oy];
+  const float a0 = rw[oy], a1 = rw[ho + oy];
+  const int c0 = cols[ox], c1 = cols[wo + ox];
+  const float b0 = cw[ox], b1 = cw[wo + ox];
+
+  const size_t hw = (size_t)h * w;
+  const T* p = x + (size_t)b * K * hw;
+  const size_t o00 = (size_t)r0 * w + c0, o01 = (size_t)r0 * w + c1;
+  const size_t o10 = (size_t)r1 * w + c0, o11 = (size_t)r1 * w + c1;
+
+  float best = -INFINITY;
+  int idx = 0;
+  for (int k = 0; k < K; ++k) {
+    const T* pk = p + (size_t)k * hw;
+    const float z0 = __fadd_rn(__fmul_rn(b0, load_f32(pk + o00)),
+                               __fmul_rn(b1, load_f32(pk + o01)));
+    const float z1 = __fadd_rn(__fmul_rn(b0, load_f32(pk + o10)),
+                               __fmul_rn(b1, load_f32(pk + o11)));
+    const float v = __fadd_rn(__fmul_rn(a0, z0), __fmul_rn(a1, z1));
+    if (v > best) {
+      best = v;
+      idx = k;
+    }
+  }
+  out[((size_t)b * ho + oy) * wo + ox] = (uint8_t)idx;
+}
+
+// Launches the W-first kernel; arguments as segtpu_upsample_argmax, with the
+// W weights (cw) bf16-rounded by the caller in bf16 mode.
+extern "C" int segtpu_upsample_argmax_flat(
+    const void* logits, void* out, int B, int K, int h, int w, int ho, int wo,
+    int in_bf16, const int* rows, const float* rw, const int* cols,
+    const float* cw, void* stream) {
+  const dim3 block(256);
+  const dim3 grid((wo + 255) / 256, ho, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  if (in_bf16)
+    upsample_argmax_flat_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(logits), o, K, h, w, ho, wo, rows,
+        rw, cols, cw);
+  else
+    upsample_argmax_flat_kernel<float><<<grid, block, 0, s>>>(
+        static_cast<const float*>(logits), o, K, h, w, ho, wo, rows, rw, cols,
+        cw);
+  return (int)cudaGetLastError();
+}
+
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
 extern "C" int segtpu_upsample_argmax(const void* logits, void* out, int B,
                                       int K, int h, int w, int ho, int wo,

@@ -4,23 +4,33 @@
 For even H and W the path is
 
     front kernel (normalize + space-to-depth, zero-padded to the stride
-    multiple) -> Segmenter on "s2d12" -> tail kernel (upsample + argmax,
-    cropped to H x W)
+    multiple) -> folded encoder (stem conv_chw, 13 inv_res_chw and 4
+    inv_res_s2_chw kernels, BatchNorm folded) -> folded decoder
+    (pw_chain_chw, resize_chw, sep_conv_chw, cell_op_chw and the
+    classifier's conv_chw or pw_multi_chw) -> tail kernel (upsample +
+    argmax, cropped to H x W)
 
-and for odd H or W the normalized image is zero-padded and goes through
-the 3x3 stride-2 ("nhwc3") stem into the same tail — the JAX engine's
-shape rule (``use_s2d``), not a fallback. Compute is bf16 by default,
-f32 selectable; the tail's interpolation and argmax run in f32.
+as the JAX engine's Pallas branch runs ``mbv2_chw_apply`` and
+``build_fast_decoder``. For odd H or W (the front kernel takes even
+sizes) the image is normalized on the device, zero-padded to the stride
+multiple, which is even, and packed by space-to-depth into the same
+folded encoder: the JAX engine runs such frames through the unfolded
+encoder's 3x3 stride-2 stem ("nhwc3"), which is the same function, as
+``encoders.stem_s2d_kernel`` shows. The tail is the W-first
+``upsample_argmax_flat`` where the decoder's width is 128 (a 512-wide
+padded frame) and ``upsample_argmax`` elsewhere, the JAX engine's
+``flat_tail_profitable`` rule. Compute is bf16 by default, f32
+selectable; the tail's interpolation and argmax run in f32.
 
-On a CUDA device both ends run as the hand-written kernels of
-``segtpu_torch.kernels``; ``use_kernels=False`` swaps in their plain
-PyTorch versions (the reference run), and on the CPU the plain
-versions are what the wrappers run.
+On a CUDA device the front, the folded encoder and decoder and the tail
+run as the hand-written kernels of ``segtpu_torch.kernels``;
+``use_kernels=False`` swaps in their plain PyTorch versions (the
+reference run), and on the CPU the plain versions are what the wrappers
+run.
 """
 
 from __future__ import annotations
 
-import copy
 from typing import Tuple
 
 import numpy as np
@@ -29,7 +39,11 @@ import torch.nn.functional as F
 
 from segtpu_torch.core.resize import resize_bilinear
 from segtpu_torch.kernels.front import normalize_s2d_front
-from segtpu_torch.kernels.upsample_argmax import upsample_argmax
+from segtpu_torch.kernels.upsample_argmax import (flat_tail_profitable,
+                                                  upsample_argmax,
+                                                  upsample_argmax_flat)
+from segtpu_torch.models.fast_decoder import fold_decoder
+from segtpu_torch.models.fast_encoder import fold_encoder
 from segtpu_torch.utils.helpers import (IMG_MEAN, IMG_SCALE, IMG_STD,
                                         resolve_device)
 
@@ -72,9 +86,11 @@ class Segmenter:
     >>> mask = seg.predict(img_u8)             # uint8 [H,W,3] -> uint8 [H,W]
     >>> masks = seg.predict_batch(imgs_u8)     # uint8 [N,H,W,3]
 
-    The model is copied to ``device`` once, at construction, with its
-    conv weights in the compute dtype (BatchNorm stays f32). Entry
-    points run on the card unless ``device="cpu"`` is passed.
+    At construction the engine folds the model's BatchNorm into the
+    conv weights of its encoder and decoder, from the f32 weights, and
+    keeps the folded copies on ``device``; the caller's model is left as
+    it is. Entry points run on the card unless ``device="cpu"`` is
+    passed.
     """
 
     def __init__(self, model, *, align_corners: bool = True,
@@ -86,14 +102,10 @@ class Segmenter:
         self.align_corners = align_corners
         self.compute_dtype = compute_dtype
         self.use_kernels = use_kernels
-        model = copy.deepcopy(model).eval()
-        with torch.no_grad():
-            for m in model.modules():
-                for name in ("w", "b"):
-                    p = m._parameters.get(name)
-                    if p is not None:
-                        p.data = p.data.to(compute_dtype)
-        self.model = model.to(self.device)
+        self.encoder = fold_encoder(model.encoder,
+                                    compute_dtype).to(self.device)
+        self.decoder = fold_decoder(model.decoder,
+                                    compute_dtype).to(self.device)
         self.num_classes = model.num_classes
 
     def infer(self, imgs):
@@ -106,21 +118,28 @@ class Segmenter:
         n, h, w, _ = imgs.shape
         hp, wp = pad_to_stride((h, w))
         if h % 2 == 0 and w % 2 == 0:
-            x = normalize_s2d_front(imgs, padded_hw=(hp, wp),
-                                    out_dtype=self.compute_dtype,
-                                    use_kernels=self.use_kernels)
-            fmt = "s2d12"
+            x12 = normalize_s2d_front(imgs, padded_hw=(hp, wp),
+                                      out_dtype=self.compute_dtype,
+                                      use_kernels=self.use_kernels)
         else:
             x = normalize_on_device(imgs, self.compute_dtype)
             x = F.pad(x, (0, wp - w, 0, hp - h))
-            fmt = "nhwc3"
-        logits = self.model(x, input_format=fmt,
-                            align_corners=self.align_corners)
+            x12 = x.reshape(n, 3, hp // 2, 2, wp // 2, 2).permute(
+                0, 3, 5, 1, 2, 4).reshape(n, 12, hp // 2, wp // 2)
+        taps = self.encoder(x12.contiguous(), use_kernels=self.use_kernels)
+        logits = self.decoder(taps, align_corners=self.align_corners,
+                              use_kernels=self.use_kernels)
         if return_logits:
             up = resize_bilinear(logits.float(), (hp, wp),
                                  align_corners=self.align_corners)
             return up[:, :, :h, :w]
-        return upsample_argmax(logits.contiguous(), (hp, wp), crop_hw=(h, w),
+        if flat_tail_profitable(logits.shape[-1]):
+            lh, lw = logits.shape[-2:]
+            return upsample_argmax_flat(
+                logits.reshape(n, logits.shape[1], lh * lw), (lh, lw),
+                (hp, wp), crop_hw=(h, w), align_corners=self.align_corners,
+                use_kernels=self.use_kernels)
+        return upsample_argmax(logits, (hp, wp), crop_hw=(h, w),
                                align_corners=self.align_corners,
                                use_kernels=self.use_kernels)
 

@@ -27,7 +27,8 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNEL_SOURCES = ("front", "upsample_argmax")
+KERNEL_SOURCES = ("front", "upsample_argmax", "conv_chw", "inv_res",
+                  "pointwise", "cell", "resize")
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,8 +50,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    the shared headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,0 +1,871 @@
+"""Folded-BatchNorm convolutions, the fused MobileNet-v2 blocks and the
+decoder's fused ops (counterpart: segtpu/kernels/chw_ops.py — fold_bn,
+conv_chw, inv_res_chw, inv_res_s2_chw, pw_chain_chw, pw_multi_chw,
+sep_conv_chw, pair_op_chw, cell_op_chw).
+
+Every function takes and returns plain contiguous NCHW tensors; weights
+are OIHW with eval BatchNorm already folded in (``fold_bn``). The TPU
+kernels' flat-pixel layouts, row-split planes, quadrant splits and 0/1
+permutation matmuls only moved bytes into the TPU's lane layout: they
+do not change the function and are not carried over.
+
+Each wrapper launches its CUDA kernel (``csrc/conv_chw.cu``,
+``inv_res.cu``, ``pointwise.cu``, ``cell.cu``) on a CUDA tensor,
+counted in its ``.launches``, and runs its plain twin (``*_plain``,
+same signature) on a CPU tensor, or on a CUDA tensor when the caller
+passes ``use_kernels=False``. Numerics, as the TPU kernels:
+
+* dense and 1x1 weights are rounded to the compute dtype (x's dtype),
+  depthwise weights and all biases stay f32;
+* dense products take compute-dtype operands and accumulate in f32,
+  then ``+ bias``, the activation and the optional ``acc``/``vec_acc``
+  adds run in f32, and the result is rounded once;
+* depthwise convs run in f32 on the upcast input;
+* a chain of 1x1 stages and a cell's nodes round every intermediate to
+  the compute dtype, as storing it would; a separable conv rounds its
+  depthwise output once, before its 1x1 product; two branches of a
+  node are summed in f32;
+* in the inverted residual the expanded tensor stays f32 and is never
+  rounded; zero padding is applied to it (the depthwise input), not to
+  the block input; the depthwise result (+ bias, relu6) is rounded to
+  the compute dtype once, just before the project product; then
+  ``+ bias``, ``+ residual`` (the input upcast) and one final rounding.
+
+The plain twins compute the same sums in the kernels' order with
+elementwise f32 tensor ops on upcast operands: a dense sum runs over
+input channels, then taps, in ascending order, starting from zero; a
+depthwise sum over taps in row-major order; the 1x1 products over
+channels. Each step is one rounded multiply and one rounded add (a bf16
+product is exact in f32, so the kernels' fused multiply-adds on bf16
+operands round the same way; their depthwise and f32 products round
+separately). A kernel and its twin therefore give the same bits in bf16
+and in f32, on any device and at any batch size, where a library
+convolution's sum order is unspecified: its bf16 roundings would differ
+from the kernel's here and there, and those differences grow through
+the 17 blocks of the encoder.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from segtpu_torch.core.layers import ACTIVATIONS, BN_EPS, relu6
+
+_ACT_CODE = {"none": 0, "relu": 1, "relu6": 2}
+_SMEM_LIMIT = 227 * 1024      # opt-in shared memory per block on the H100
+
+
+@torch.no_grad()
+def fold_bn(w, scale, bias, mean, var, eps: float = BN_EPS):
+    """OIHW conv weight + eval BatchNorm -> (folded weight, folded bias),
+    in f32: ``inv = scale * rsqrt(var + eps)``, ``(w * inv, bias - mean
+    * inv)`` per output channel."""
+    inv = scale.float() * torch.rsqrt(var.float() + eps)
+    return (w.float() * inv[:, None, None, None],
+            bias.float() - mean.float() * inv)
+
+
+def _check_x(x, what: str):
+    if x.ndim != 4:
+        raise ValueError(f"{what} takes x [B, C, H, W], got {tuple(x.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what} computes in bf16 or f32, not {x.dtype}")
+
+
+def _use_plain(x, use_kernels: bool, what: str) -> bool:
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
+    return not use_kernels
+
+
+def _stream_ptr(t) -> int:
+    with torch.cuda.device(t.device):
+        return torch.cuda.current_stream().cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _ptrs(ts):
+    """ctypes array of the tensors' data pointers (None -> null)."""
+    return (ctypes.c_void_p * len(ts))(
+        *[None if t is None else t.data_ptr() for t in ts])
+
+
+def _ints(vs):
+    return (ctypes.c_int * len(vs))(*vs)
+
+
+def _on(t, dtype, dev):
+    """t as a contiguous ``dtype`` tensor on ``dev`` (no copy when it
+    already is one); None stays None."""
+    if t is None:
+        return None
+    if t.device != dev:
+        raise ValueError(f"operand on {t.device}, x on {dev}")
+    return t.to(dtype).contiguous()
+
+
+# ---------------------------------------------------------------- conv_chw
+
+def _conv_geometry(x, w, bias, acc, vec_acc, k, dilation, depthwise, act):
+    _check_x(x, "conv_chw")
+    b, c, h, wd = x.shape
+    if k not in (1, 2, 3, 5):
+        raise ValueError(f"conv_chw takes k in (1, 2, 3, 5), not {k}")
+    if dilation < 1:
+        raise ValueError(f"dilation must be >= 1, got {dilation}")
+    if act not in _ACT_CODE:
+        raise ValueError(f"act is one of {sorted(_ACT_CODE)}, not {act!r}")
+    cout = c if depthwise else w.shape[0]
+    want = (c, 1, k, k) if depthwise else (cout, c, k, k)
+    if tuple(w.shape) != want:
+        raise ValueError(f"conv_chw weight must be OIHW {want}, got "
+                         f"{tuple(w.shape)}")
+    if tuple(bias.shape) != (cout,):
+        raise ValueError(f"bias must be [{cout}], got {tuple(bias.shape)}")
+    if acc is not None and tuple(acc.shape) != (b, cout, h, wd):
+        raise ValueError(f"acc must be {(b, cout, h, wd)}, got "
+                         f"{tuple(acc.shape)}")
+    if vec_acc is not None and tuple(vec_acc.shape) != (b, cout):
+        raise ValueError(f"vec_acc must be {(b, cout)}, got "
+                         f"{tuple(vec_acc.shape)}")
+    return b, c, h, wd, cout
+
+
+def _pads(k: int, dilation: int):
+    """Tap offsets are dilation * (t - k // 2), t = 0..k-1: k = 2 reads
+    dy, dx in {-d, 0} (pad (d, 0)), odd k pads symmetrically."""
+    lo = dilation * (k // 2)
+    return lo, dilation * (k - 1) - lo
+
+
+def _taps(xp, k: int, dilation: int, stride: int, out_hw):
+    """Tap views of the zero-padded xp, row-major: tap (ky, kx) of output
+    (i, j) reads xp[stride * i + dilation * ky, stride * j + dilation * kx]."""
+    ho, wo = out_hw
+    return [xp[:, :, dilation * ky:dilation * ky + stride * (ho - 1) + 1:stride,
+               dilation * kx:dilation * kx + stride * (wo - 1) + 1:stride]
+            for ky in range(k) for kx in range(k)]
+
+
+def _dense_sum(taps, w):
+    """sum over channels c, then taps t, of w[o, c, t] * tap_t[c], one
+    rounded multiply and add per step from zero (the kernels' order)."""
+    b, c, h, wd = taps[0].shape
+    y = taps[0].new_zeros((b, w.shape[0], h, wd))
+    wt = w.reshape(w.shape[0], c, len(taps))
+    for ci in range(c):
+        for t, xt in enumerate(taps):
+            y += wt[:, ci, t, None, None] * xt[:, ci:ci + 1]
+    return y
+
+
+def _depthwise_sum(taps, w):
+    """sum over taps t of w[c, t] * tap_t[c], the kernels' order."""
+    y = torch.zeros_like(taps[0])
+    wt = w.reshape(w.shape[0], len(taps))
+    for t, xt in enumerate(taps):
+        y += wt[:, t, None, None] * xt
+    return y
+
+
+def conv_chw_plain(x, w, bias, acc=None, vec_acc=None, *, k: int,
+                   dilation: int = 1, depthwise: bool = False,
+                   act: str = "relu"):
+    """Plain PyTorch version of ``conv_chw`` (same signature, numerics
+    and sum order)."""
+    _, _, h, wd, _ = _conv_geometry(x, w, bias, acc, vec_acc, k, dilation,
+                                    depthwise, act)
+    lo, hi = _pads(k, dilation)
+    taps = _taps(F.pad(x.float(), (lo, hi, lo, hi)), k, dilation, 1, (h, wd))
+    if depthwise:
+        y = _depthwise_sum(taps, w.float())
+    else:
+        y = _dense_sum(taps, w.to(x.dtype).float())
+    y = ACTIVATIONS[act](y + bias.float()[:, None, None])
+    if acc is not None:
+        y = y + acc.float()
+    if vec_acc is not None:
+        y = y + vec_acc.float()[:, :, None, None]
+    return y.to(x.dtype)
+
+
+def conv_chw(x, w, bias, acc=None, vec_acc=None, *, k: int,
+             dilation: int = 1, depthwise: bool = False, act: str = "relu",
+             use_kernels: bool = True):
+    """x [B, C, H, W] -> act(conv(x, w) + bias) (+ acc) (+ vec_acc)
+    [B, Cout, H, W], with BN folded into the OIHW weight ``w`` (dense
+    [Cout, C, k, k] or depthwise [C, 1, k, k]) and f32 ``bias``.
+
+    k in (1, 2, 3, 5) at any dilation, zero-padded to the same size;
+    act "relu", "relu6" or "none"; ``acc`` [B, Cout, H, W] and
+    ``vec_acc`` [B, Cout] are added after the activation in f32. On a
+    CUDA tensor this launches the kernel (``conv_chw.launches``)."""
+    if _use_plain(x, use_kernels, "conv_chw"):
+        return conv_chw_plain(x, w, bias, acc, vec_acc, k=k,
+                              dilation=dilation, depthwise=depthwise,
+                              act=act)
+    b, c, h, wd, cout = _conv_geometry(x, w, bias, acc, vec_acc, k,
+                                       dilation, depthwise, act)
+    if not x.is_contiguous():
+        raise ValueError("conv_chw kernel needs a contiguous x")
+    if acc is not None and (acc.dtype != x.dtype or not acc.is_contiguous()):
+        raise ValueError("conv_chw kernel needs acc contiguous in x's dtype")
+    dev = x.device
+    wk = _on(w, torch.float32 if depthwise else x.dtype, dev)
+    bk = _on(bias, torch.float32, dev)
+    vk = _on(vec_acc, torch.float32, dev)
+    if acc is not None and acc.device != dev:
+        raise ValueError(f"acc on {acc.device}, x on {dev}")
+    out = torch.empty((b, cout, h, wd), dtype=x.dtype, device=dev)
+    from segtpu_torch.kernels._build import load
+    fn = load("conv_chw").segtpu_conv_chw
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(x.data_ptr(), wk.data_ptr(), bk.data_ptr(),
+            acc.data_ptr() if acc is not None else None,
+            vk.data_ptr() if vk is not None else None, out.data_ptr(),
+            b, c, cout, h, wd, k, dilation, int(depthwise), _ACT_CODE[act],
+            int(x.dtype == torch.bfloat16), _stream_ptr(x))
+    if rc != 0:
+        raise RuntimeError(f"conv_chw kernel launch failed: CUDA error {rc}")
+    conv_chw.launches += 1
+    return out
+
+
+conv_chw.launches = 0
+
+
+# ------------------------------------------------------ inverted residuals
+
+def _r4(v: int) -> int:
+    return -(-v // 4) * 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def inv_res_window(th: int, tw: int, stride: int):
+    """(rows, cols) of the input window an output tile of th x tw reads:
+    the tile plus a one-pixel halo (stride 1), or rows 2i-1..2i+1 of
+    every output row i (stride 2)."""
+    return stride * th + 3 - stride, stride * tw + 3 - stride
+
+
+def inv_res_smem(cin: int, mc: int, cout: int, th: int, tw: int,
+                 stride: int, elt: int) -> int:
+    """Shared-memory bytes of one inv_res block (csrc/inv_res.cu holds
+    the same layout): f32 project accumulator [Cout, P], rounded dw
+    output [MC, P], expanded window [MC, WINP], chunk weights and
+    biases, then the input window [Cin, WINP] in the compute dtype."""
+    p = th * tw
+    wh, ww = inv_res_window(th, tw, stride)
+    winp = _r4(wh * ww)
+    floats = (cout * p + mc * p + mc * winp + cin * mc + mc * cout
+              + _r4(9 * mc) + 2 * mc)
+    return 4 * floats + elt * cin * winp
+
+
+# output tiles (th, tw), largest first; tw is a multiple of 4 (the
+# kernel's 4-wide vector steps)
+_TILES = sorted(((th, tw) for th in (8, 4, 2, 1) for tw in (32, 16, 8, 4)),
+                key=lambda t: (-t[0] * t[1], -t[1]))
+
+# (cin, cmid, cout, stride) -> (th, tw, mc): the fastest of every tile that
+# fits, measured by ``python3 -m segtpu_torch.kernels.inv_res_sweep`` at the
+# MobileNet-v2 blocks of a bf16 b8 1024x2048 batch on an H100 (PERF.md)
+_MEASURED_TILES = {
+    (32, 32, 16, 1): (8, 16, 16), (16, 96, 24, 2): (8, 16, 8),
+    (24, 144, 24, 1): (8, 16, 16), (24, 144, 32, 2): (4, 16, 16),
+    (32, 192, 32, 1): (8, 16, 16), (32, 192, 64, 2): (4, 16, 32),
+    (64, 384, 64, 1): (8, 16, 32), (64, 384, 96, 1): (4, 32, 16),
+    (96, 576, 96, 1): (8, 16, 64), (96, 576, 160, 2): (4, 16, 32),
+    (160, 960, 160, 1): (8, 16, 32), (160, 960, 320, 1): (8, 8, 32),
+}
+
+
+def _tile_ok(th, tw, ho, wo):
+    """A tile no more than twice the output's extent in each dimension."""
+    return (th == 1 or th // 2 < ho) and (tw == 4 or tw // 2 < wo)
+
+
+def inv_res_tile(cin: int, cmid: int, cout: int, ho: int, wo: int,
+                 stride: int, elt: int, batch: int, *, sm_count: int):
+    """(th, tw, mc) of one inv_res launch: the measured tile of the block
+    shape where there is one and it fits; otherwise mc is the largest of
+    32, 16, 8, 4 dividing cmid, and the tile the largest whose shared
+    memory fits that still gives every one of the card's ``sm_count``
+    multiprocessors two blocks (else the smallest that fits)."""
+    t = _MEASURED_TILES.get((cin, cmid, cout, stride))
+    if t is not None and _tile_ok(t[0], t[1], ho, wo) and inv_res_smem(
+            cin, t[2], cout, t[0], t[1], stride, elt) <= _SMEM_LIMIT:
+        return t
+    mc = next((m for m in (32, 16, 8, 4) if cmid % m == 0), None)
+    if mc is None:
+        raise ValueError(f"inv_res: mid width {cmid} is not a multiple of 4")
+    fits = [(th, tw) for th, tw in _TILES if _tile_ok(th, tw, ho, wo)
+            and inv_res_smem(cin, mc, cout, th, tw, stride, elt) <= _SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"inv_res: no tile fits shared memory for "
+                         f"cin={cin} cmid={cmid} cout={cout}")
+    for th, tw in fits:
+        if batch * _cdiv(ho, th) * _cdiv(wo, tw) >= 2 * sm_count:
+            return th, tw, mc
+    return fits[-1] + (mc,)
+
+
+def _inv_res_geometry(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, stride,
+                      residual, what):
+    _check_x(x, what)
+    b, cin, h, w = x.shape
+    cmid = w_dw.shape[0]
+    if w_exp is None:
+        if cmid != cin:
+            raise ValueError(f"{what}: without expand the dw width {cmid} "
+                             f"must equal the input's {cin}")
+    elif (tuple(w_exp.shape) != (cmid, cin, 1, 1)
+          or b_exp is None or tuple(b_exp.shape) != (cmid,)):
+        raise ValueError(f"{what}: expand weight must be OIHW "
+                         f"{(cmid, cin, 1, 1)} with a [{cmid}] bias")
+    if tuple(w_dw.shape) != (cmid, 1, 3, 3) or tuple(b_dw.shape) != (cmid,):
+        raise ValueError(f"{what}: dw weight must be {(cmid, 1, 3, 3)} "
+                         f"with a [{cmid}] bias, got {tuple(w_dw.shape)}")
+    cout = w_proj.shape[0]
+    if (tuple(w_proj.shape) != (cout, cmid, 1, 1)
+            or tuple(b_proj.shape) != (cout,)):
+        raise ValueError(f"{what}: project weight must be OIHW "
+                         f"(Cout, {cmid}, 1, 1) with a [Cout] bias")
+    if residual and (stride != 1 or cin != cout):
+        raise ValueError(f"{what}: a residual needs stride 1 and Cin == Cout")
+    if stride == 2 and (h % 2 or w % 2):
+        raise ValueError(f"{what}: stride 2 needs even H, W, got {(h, w)}")
+    return b, cin, cmid, cout, h, w
+
+
+def _inv_res_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
+                   stride: int, residual: bool):
+    _, _, h, w = x.shape
+    xf = x.float()
+    mid = xf
+    if w_exp is not None:   # f32 expand, never rounded
+        mid = relu6(_dense_sum([xf], w_exp.to(x.dtype).float())
+                    + b_exp.float()[:, None, None])
+    taps = _taps(F.pad(mid, (1, 1, 1, 1)), 3, 1, stride,
+                 (h // stride, w // stride))
+    d = relu6(_depthwise_sum(taps, w_dw.float())
+              + b_dw.float()[:, None, None])
+    d = d.to(x.dtype).float()          # the one rounding before project
+    y = (_dense_sum([d], w_proj.to(x.dtype).float())
+         + b_proj.float()[:, None, None])
+    if residual:
+        y = y + xf
+    return y.to(x.dtype)
+
+
+def inv_res_chw_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
+                      residual: bool = False):
+    """Plain PyTorch version of ``inv_res_chw`` (same signature and
+    numerics)."""
+    _inv_res_geometry(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, 1,
+                      residual, "inv_res_chw")
+    return _inv_res_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj,
+                          stride=1, residual=residual)
+
+
+def inv_res_s2_chw_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj):
+    """Plain PyTorch version of ``inv_res_s2_chw`` (same signature and
+    numerics)."""
+    _inv_res_geometry(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, 2,
+                      False, "inv_res_s2_chw")
+    return _inv_res_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj,
+                          stride=2, residual=False)
+
+
+def _inv_res_launch(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
+                    stride: int, residual: bool, what: str, tile=None):
+    b, cin, cmid, cout, h, w = _inv_res_geometry(
+        x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, stride, residual, what)
+    if cmid % 4 or cout % 4:
+        raise ValueError(f"{what} kernel needs the mid and output widths "
+                         f"in multiples of 4, got {cmid}, {cout}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} kernel needs a contiguous x")
+    dev = x.device
+    we, be = _on(w_exp, x.dtype, dev), _on(b_exp, torch.float32, dev)
+    wd, bd = _on(w_dw, torch.float32, dev), _on(b_dw, torch.float32, dev)
+    wp, bp = _on(w_proj, x.dtype, dev), _on(b_proj, torch.float32, dev)
+    ho, wo = h // stride, w // stride
+    elt = x.element_size()
+    th, tw, mc = tile or inv_res_tile(cin, cmid, cout, ho, wo, stride, elt,
+                                      b, sm_count=_sm_count(dev))
+    out = torch.empty((b, cout, ho, wo), dtype=x.dtype, device=dev)
+    from segtpu_torch.kernels._build import load
+    fn = load("inv_res").segtpu_inv_res
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(x.data_ptr(), we.data_ptr() if we is not None else None,
+            be.data_ptr() if be is not None else None, wd.data_ptr(),
+            bd.data_ptr(), wp.data_ptr(), bp.data_ptr(), out.data_ptr(),
+            b, cin, cmid, cout, h, w, stride, th, tw, mc, int(residual),
+            int(x.dtype == torch.bfloat16), _stream_ptr(x))
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def inv_res_chw(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
+                residual: bool = False, use_kernels: bool = True):
+    """Fused stride-1 inverted residual, x [B, Cin, H, W] -> [B, Cout,
+    H, W]: expand 1x1 + relu6 (skipped when ``w_exp`` is None), dw 3x3
+    + relu6, project 1x1 (+ x when ``residual``), BN folded into every
+    OIHW weight. On a CUDA tensor this launches the kernel
+    (``inv_res_chw.launches``)."""
+    if _use_plain(x, use_kernels, "inv_res_chw"):
+        return inv_res_chw_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj,
+                                 residual=residual)
+    out = _inv_res_launch(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj,
+                          stride=1, residual=residual, what="inv_res_chw")
+    inv_res_chw.launches += 1
+    return out
+
+
+def inv_res_s2_chw(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
+                   use_kernels: bool = True):
+    """Fused stride-2 inverted residual (torch pad=1: output (i, j) reads
+    input rows 2i-1..2i+1 and columns 2j-1..2j+1), x [B, Cin, H, W]
+    (H, W even) -> [B, Cout, H/2, W/2]. On a CUDA tensor this launches
+    the kernel (``inv_res_s2_chw.launches``)."""
+    if _use_plain(x, use_kernels, "inv_res_s2_chw"):
+        return inv_res_s2_chw_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj,
+                                    b_proj)
+    out = _inv_res_launch(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj,
+                          stride=2, residual=False, what="inv_res_s2_chw")
+    inv_res_s2_chw.launches += 1
+    return out
+
+
+inv_res_chw.launches = 0
+inv_res_s2_chw.launches = 0
+
+
+# ------------------------------------------------- decoder 1x1 products
+
+def _pw_geometry(xs, stages, acts, what):
+    """Checks the sources and stages of a 1x1 chain; returns (B, H, W,
+    output channels)."""
+    if not xs:
+        raise ValueError(f"{what} needs at least one source")
+    for x in xs:
+        _check_x(x, what)
+    b, _, h, w = xs[0].shape
+    for x in xs[1:]:
+        if (x.shape[0], *x.shape[2:]) != (b, h, w) or x.dtype != xs[0].dtype:
+            raise ValueError(f"{what}: sources differ in batch, size or "
+                             f"dtype: {tuple(x.shape)} {x.dtype}")
+    if not stages or len(acts) != len(stages):
+        raise ValueError(f"{what}: {len(stages)} stages, {len(acts)} acts")
+    c = sum(x.shape[1] for x in xs)
+    for (wt, bias), act in zip(stages, acts):
+        if wt.ndim != 4 or tuple(wt.shape[1:]) != (c, 1, 1):
+            raise ValueError(f"{what}: stage weight must be OIHW (Cout, {c}, "
+                             f"1, 1), got {tuple(wt.shape)}")
+        if tuple(bias.shape) != (wt.shape[0],):
+            raise ValueError(f"{what}: bias must be [{wt.shape[0]}], got "
+                             f"{tuple(bias.shape)}")
+        if act not in _ACT_CODE:
+            raise ValueError(f"act is one of {sorted(_ACT_CODE)}, not {act!r}")
+        c = wt.shape[0]
+    return b, h, w, c
+
+
+def _pw_plain(xs, stages, acts):
+    """The chain in the kernel's order: stage 0 over the sources'
+    channels in turn, every stage rounded to the dtype."""
+    dt = xs[0].dtype
+    y = torch.cat([x.float() for x in xs], 1)
+    for (wt, bias), act in zip(stages, acts):
+        y = ACTIVATIONS[act](_dense_sum([y], wt.to(dt).float())
+                             + bias.float()[:, None, None])
+        y = y.to(dt).float()
+    return y.to(dt)
+
+
+def _pw_launch(xs, stages, acts, what):
+    b, h, w, cout = _pw_geometry(xs, stages, acts, what)
+    if len(xs) > 4 or len(stages) > 4 or (len(stages) > 1 and len(xs) > 1):
+        raise ValueError(f"{what} kernel takes up to 4 sources for one "
+                         f"stage, or one source for up to 4 stages")
+    if not all(x.is_contiguous() for x in xs):
+        raise ValueError(f"{what} kernel needs contiguous sources")
+    dev, dt = xs[0].device, xs[0].dtype
+    ws = [_on(wt.reshape(wt.shape[0], -1), dt, dev) for wt, _ in stages]
+    bs = [_on(bias, torch.float32, dev) for _, bias in stages]
+    out = torch.empty((b, cout, h, w), dtype=dt, device=dev)
+    arrays = (_ptrs(xs), _ints([x.shape[1] for x in xs]), _ptrs(ws),
+              _ptrs(bs), _ints([wt.shape[1] for wt in ws]),
+              _ints([wt.shape[0] for wt in ws]),
+              _ints([_ACT_CODE[a] for a in acts]))
+    from segtpu_torch.kernels._build import load
+    fn = load("pointwise").segtpu_pointwise
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [
+        ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                                ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    a = [ctypes.addressof(arr) for arr in arrays]
+    rc = fn(a[0], a[1], len(xs), a[2], a[3], a[4], a[5], a[6], len(stages),
+            out.data_ptr(), b, h * w, int(dt == torch.bfloat16),
+            _stream_ptr(xs[0]))
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def pw_chain_chw_plain(x, stages, *, acts=None):
+    """Plain PyTorch version of ``pw_chain_chw`` (same signature, numerics
+    and sum order)."""
+    acts = ["relu"] * len(stages) if acts is None else list(acts)
+    _pw_geometry([x], stages, acts, "pw_chain_chw")
+    return _pw_plain([x], stages, acts)
+
+
+def pw_chain_chw(x, stages, *, acts=None, use_kernels: bool = True):
+    """x [B, C0, H, W] through 1x1 stages [(w OIHW [C_i+1, C_i, 1, 1],
+    f32 bias), ...] -> [B, Cn, H, W]: each stage act(w @ y + bias) in
+    f32, rounded to x's dtype (the storage rounding of running the stages
+    one by one). ``acts`` per stage, default all "relu". On a CUDA tensor
+    this launches the kernel (``pw_chain_chw.launches``)."""
+    if _use_plain(x, use_kernels, "pw_chain_chw"):
+        return pw_chain_chw_plain(x, stages, acts=acts)
+    acts = ["relu"] * len(stages) if acts is None else list(acts)
+    out = _pw_launch([x], stages, acts, "pw_chain_chw")
+    pw_chain_chw.launches += 1
+    return out
+
+
+def pw_multi_chw_plain(xs, ws, bias, *, act: str = "none"):
+    """Plain PyTorch version of ``pw_multi_chw``."""
+    stages = [(torch.cat(list(ws), 1), bias)]
+    _pw_geometry(xs, stages, [act], "pw_multi_chw")
+    return _pw_plain(xs, stages, [act])
+
+
+def pw_multi_chw(xs, ws, bias, *, act: str = "none",
+                 use_kernels: bool = True):
+    """sum_i ws[i] @ xs[i] + bias, then act: xs[i] [B, C_i, H, W] and
+    ws[i] OIHW [Cout, C_i, 1, 1] -> [B, Cout, H, W], equal to a 1x1 conv
+    of the concatenated sources without the concatenation (the decoder
+    head). On a CUDA tensor this launches the kernel
+    (``pw_multi_chw.launches``)."""
+    if _use_plain(xs[0], use_kernels, "pw_multi_chw"):
+        return pw_multi_chw_plain(xs, ws, bias, act=act)
+    out = _pw_launch(list(xs), [(torch.cat(list(ws), 1), bias)], [act],
+                     "pw_multi_chw")
+    pw_multi_chw.launches += 1
+    return out
+
+
+pw_chain_chw.launches = 0
+pw_multi_chw.launches = 0
+
+
+# --------------------------------------------------- decoder cell nodes
+#
+# A branch is a dict: {"kind": "conv", "k", "dil", "w" (OIHW [Cout, Cin,
+# k, k]), "b"}, {"kind": "sep", "k", "dil", "wdw" ([Cin, 1, k, k] f32),
+# "bdw", "wpw" (OIHW [Cout, Cin, 1, 1]), "bpw"}, {"kind": "skip"} or
+# {"kind": "none"}; in ``cell_op_chw`` it also names its source ("entry"),
+# and {"kind": "vec", "vec": [B, Cout] f32} is a global-average-pool
+# branch's vector. Conv and sep branches end in relu.
+
+_KIND = {"none": 0, "conv": 1, "sep": 2, "skip": 3}
+
+
+def _branch_check(br, x, shape, what):
+    kind = br["kind"]
+    if kind not in _KIND:
+        raise ValueError(f"{what}: branch kind {kind!r} is not one of "
+                         f"{sorted(_KIND)}")
+    if kind == "none":
+        return
+    b, cout, h, w = shape
+    _check_x(x, what)
+    if (x.shape[0], *x.shape[2:]) != (b, h, w):
+        raise ValueError(f"{what}: branch input {tuple(x.shape)} does not "
+                         f"match the output {shape}")
+    cin = x.shape[1]
+    if kind == "skip":
+        if cin != cout:
+            raise ValueError(f"{what}: a skip branch needs {cout} channels")
+        return
+    k, dil = br["k"], br["dil"]
+    if k not in (1, 3, 5) or dil < 1:
+        raise ValueError(f"{what}: k in (1, 3, 5) and dilation >= 1, got "
+                         f"{k}, {dil}")
+    if kind == "conv":
+        want = {"w": (cout, cin, k, k), "b": (cout,)}
+    else:
+        want = {"wdw": (cin, 1, k, k), "bdw": (cin,),
+                "wpw": (cout, cin, 1, 1), "bpw": (cout,)}
+    for name, shp in want.items():
+        if tuple(br[name].shape) != shp:
+            raise ValueError(f"{what}: {kind} {name} must be {shp}, got "
+                             f"{tuple(br[name].shape)}")
+
+
+def _branch_plain(br, x, dt):
+    """A branch's f32 value in the kernel's order (None for "none")."""
+    kind = br["kind"]
+    if kind == "none":
+        return None
+    if kind == "skip":
+        return x.float()
+    k, dil = br["k"], br["dil"]
+    h, w = x.shape[-2:]
+    lo, hi = _pads(k, dil)
+    taps = _taps(F.pad(x.float(), (lo, hi, lo, hi)), k, dil, 1, (h, w))
+    if kind == "conv":
+        return torch.relu(_dense_sum(taps, br["w"].to(dt).float())
+                          + br["b"].float()[:, None, None])
+    mid = torch.relu(_depthwise_sum(taps, br["wdw"].float())
+                     + br["bdw"].float()[:, None, None])
+    return torch.relu(_dense_sum([mid.to(dt).float()], br["wpw"].to(dt).float())
+                      + br["bpw"].float()[:, None, None])
+
+
+def _node_plain(pairs, add, vec, shape, ref):
+    dt = ref.dtype
+    tot = None
+    for br, x in pairs:
+        y = _branch_plain(br, x, dt)
+        if y is not None:
+            tot = y if tot is None else tot + y
+    if tot is None:
+        tot = torch.zeros(shape, dtype=torch.float32, device=ref.device)
+    if add is not None:
+        tot = tot + add.float()
+    if vec is not None:
+        tot = tot + vec.float()[:, :, None, None]
+    return tot.to(dt)
+
+
+def _node_launch(pairs, add, vec, shape, dt, dev, what):
+    b, cout, h, w = shape
+    for _, x in pairs:
+        if x is not None and (x.dtype != dt or not x.is_contiguous()
+                              or x.device != dev):
+            raise ValueError(f"{what} kernel needs every input contiguous "
+                             f"in {dt} on {dev}")
+    if add is not None and (add.dtype != dt or not add.is_contiguous()
+                            or tuple(add.shape) != shape):
+        raise ValueError(f"{what} kernel needs acc {shape} contiguous in {dt}")
+    vk = _on(vec, torch.float32, dev)
+    cols = {n: [] for n in ("kind", "x", "cin", "k", "dil", "w", "b", "wdw",
+                            "bdw")}
+    for br, x in pairs:
+        kind = br["kind"]
+        cols["kind"].append(_KIND[kind])
+        cols["x"].append(x)
+        cols["cin"].append(0 if x is None else x.shape[1])
+        cols["k"].append(br.get("k", 1))
+        cols["dil"].append(br.get("dil", 1))
+        conv, sep = kind == "conv", kind == "sep"
+        cols["w"].append(_on(br["w"], dt, dev) if conv else
+                         _on(br["wpw"], dt, dev) if sep else None)
+        cols["b"].append(_on(br["b"] if conv else br["bpw"], torch.float32,
+                             dev) if conv or sep else None)
+        cols["wdw"].append(_on(br["wdw"], torch.float32, dev) if sep else None)
+        cols["bdw"].append(_on(br["bdw"], torch.float32, dev) if sep else None)
+    arrays = [_ints(cols["kind"]), _ptrs(cols["x"]), _ints(cols["cin"]),
+              _ints(cols["k"]), _ints(cols["dil"]), _ptrs(cols["w"]),
+              _ptrs(cols["b"]), _ptrs(cols["wdw"]), _ptrs(cols["bdw"])]
+    out = torch.empty(shape, dtype=dt, device=dev)
+    from segtpu_torch.kernels._build import load
+    fn = load("cell").segtpu_cell_node
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(len(pairs), *[ctypes.addressof(a) for a in arrays],
+            None if add is None else add.data_ptr(),
+            None if vk is None else vk.data_ptr(), out.data_ptr(),
+            b, cout, h, w, int(dt == torch.bfloat16), _stream_ptr(out))
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def _node(pairs, add, vec, shape, ref, plain: bool, what):
+    """One node, checked, through its plain twin or the kernel."""
+    for br, x in pairs:
+        _branch_check(br, x, shape, what)
+    if add is not None and tuple(add.shape) != shape:
+        raise ValueError(f"acc must be {shape}, got {tuple(add.shape)}")
+    if vec is not None and tuple(vec.shape) != shape[:2]:
+        raise ValueError(f"vec_acc must be {shape[:2]}, got "
+                         f"{tuple(vec.shape)}")
+    if plain:
+        return _node_plain(pairs, add, vec, shape, ref)
+    return _node_launch(pairs, add, vec, shape, ref.dtype, ref.device, what)
+
+
+def _op_branch(op, weights):
+    """('conv' | 'sep', k, dilation) and its weights -> a branch dict."""
+    kind, k, dil = op
+    if kind == "conv":
+        w, b = weights
+        return {"kind": "conv", "k": k, "dil": dil, "w": w, "b": b}
+    if kind == "sep":
+        wdw, bdw, wpw, bpw = weights
+        return {"kind": "sep", "k": k, "dil": dil, "wdw": wdw, "bdw": bdw,
+                "wpw": wpw, "bpw": bpw}
+    raise ValueError(f"op kind is 'conv' or 'sep', not {kind!r}")
+
+
+def _sep_args(x, w_dw, b_dw, w_pw, b_pw, acc, vec_acc, k, dilation):
+    _check_x(x, "sep_conv_chw")
+    br = _op_branch(("sep", k, dilation), (w_dw, b_dw, w_pw, b_pw))
+    shape = (x.shape[0], w_pw.shape[0], *x.shape[2:])
+    return [(br, x)], acc, vec_acc, shape
+
+
+def sep_conv_chw_plain(x, w_dw, b_dw, w_pw, b_pw, acc=None, vec_acc=None, *,
+                       k: int, dilation: int = 1):
+    """Plain PyTorch version of ``sep_conv_chw``."""
+    return _node(*_sep_args(x, w_dw, b_dw, w_pw, b_pw, acc, vec_acc, k,
+                            dilation), x, True, "sep_conv_chw")
+
+
+def sep_conv_chw(x, w_dw, b_dw, w_pw, b_pw, acc=None, vec_acc=None, *,
+                 k: int, dilation: int = 1, use_kernels: bool = True):
+    """Separable conv with BN folded: relu(pw(round(relu(dw(x) + b_dw)))
+    + b_pw) (+ acc) (+ vec_acc), x [B, C, H, W] -> [B, Cout, H, W]; the
+    depthwise k x k (dilation, zero padding) in f32 with f32 weights
+    [C, 1, k, k], the 1x1 OIHW [Cout, C, 1, 1] in the dtype. On a CUDA
+    tensor this launches the kernel (``sep_conv_chw.launches``)."""
+    plain = _use_plain(x, use_kernels, "sep_conv_chw")
+    out = _node(*_sep_args(x, w_dw, b_dw, w_pw, b_pw, acc, vec_acc, k,
+                           dilation), x, plain, "sep_conv_chw")
+    if not plain:
+        sep_conv_chw.launches += 1
+    return out
+
+
+def _pair_args(x1, weights1, x2, weights2, op1, op2):
+    _check_x(x1, "pair_op_chw")
+    b1, b2 = _op_branch(op1, weights1), _op_branch(op2, weights2)
+    cout = (weights1[0] if op1[0] == "conv" else weights1[2]).shape[0]
+    return [(b1, x1), (b2, x2)], None, None, (x1.shape[0], cout,
+                                              *x1.shape[2:])
+
+
+def pair_op_chw_plain(x1, weights1, x2, weights2, *, op1, op2):
+    """Plain PyTorch version of ``pair_op_chw``."""
+    return _node(*_pair_args(x1, weights1, x2, weights2, op1, op2), x1, True,
+                 "pair_op_chw")
+
+
+def pair_op_chw(x1, weights1, x2, weights2, *, op1, op2,
+                use_kernels: bool = True):
+    """A cell node's two branches in one kernel: op1(x1) + op2(x2), each
+    op ('conv' | 'sep', k, dilation) ending in relu, summed in f32 and
+    rounded once; weights (w, b) for conv, (w_dw, b_dw, w_pw, b_pw) for
+    sep, as ``conv_chw``/``sep_conv_chw`` take them. On a CUDA tensor
+    this launches the kernel (``pair_op_chw.launches``)."""
+    plain = _use_plain(x1, use_kernels, "pair_op_chw")
+    out = _node(*_pair_args(x1, weights1, x2, weights2, op1, op2), x1, plain,
+                "pair_op_chw")
+    if not plain:
+        pair_op_chw.launches += 1
+    return out
+
+
+def _cell(srcs, nodes_desc, collect, plain: bool):
+    if not srcs:
+        raise ValueError("cell_op_chw needs at least one source")
+    _check_x(srcs[0], "cell_op_chw")
+    shape = tuple(srcs[0].shape)
+    for s in srcs:
+        if tuple(s.shape) != shape or s.dtype != srcs[0].dtype:
+            raise ValueError(f"cell_op_chw sources differ: {tuple(s.shape)}")
+    entries = list(srcs)
+    for branches in nodes_desc:
+        pairs, vec = [], None
+        for br in branches:
+            if br["kind"] == "vec":
+                v = br["vec"].float()
+                vec = v if vec is None else vec + v
+            elif br["kind"] == "none":
+                pairs.append((br, None))
+            else:
+                if not 0 <= br["entry"] < len(entries):
+                    raise ValueError(f"cell_op_chw: entry {br['entry']} "
+                                     f"not yet computed")
+                pairs.append((br, entries[br["entry"]]))
+        if len(pairs) > 2:
+            raise ValueError("cell_op_chw: a node has at most two branches "
+                             "besides its vectors")
+        entries.append(_node(pairs or [({"kind": "none"}, None)], None, vec,
+                             shape, srcs[0], plain, "cell_op_chw"))
+    if not collect or any(not 0 <= c < len(entries) for c in collect):
+        raise ValueError(f"cell_op_chw: bad collect {collect}")
+    ents = [entries[c] for c in collect]
+    if len(ents) == 1:
+        return ents[0]
+    if plain:
+        acc = ents[0]
+        for e in ents[1:]:
+            acc = (acc.float() + e.float()).to(acc.dtype)
+        return acc
+    if len(ents) > 8:
+        raise ValueError("cell_op_chw kernel sums at most 8 outputs")
+    out = torch.empty_like(ents[0])
+    arr = _ptrs(ents)
+    from segtpu_torch.kernels._build import load
+    fn = load("cell").segtpu_cell_collect
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(ctypes.addressof(arr), len(ents), out.data_ptr(), out.numel(),
+            int(out.dtype == torch.bfloat16), _stream_ptr(out))
+    if rc != 0:
+        raise RuntimeError(f"cell_op_chw collect launch failed: CUDA error "
+                           f"{rc}")
+    return out
+
+
+def cell_op_chw_plain(srcs, nodes_desc, collect):
+    """Plain PyTorch version of ``cell_op_chw``."""
+    return _cell(srcs, nodes_desc, collect, True)
+
+
+def cell_op_chw(srcs, nodes_desc, collect, *, use_kernels: bool = True):
+    """The fused suffix of a decoder cell: ``srcs`` are the materialized
+    entries [B, C, H, W]; each node of ``nodes_desc`` is a list of branch
+    dicts (see above, each naming its source entry: srcs first, then the
+    nodes in order) and appends one entry, its branch sum plus vectors
+    rounded to the dtype; returns the rounded left-to-right sum of the
+    ``collect`` entries. On a CUDA tensor this launches one node kernel
+    per node and, for a sum of several entries, the collect kernel
+    (``cell_op_chw.launches`` counts calls)."""
+    plain = _use_plain(srcs[0], use_kernels, "cell_op_chw")
+    out = _cell(srcs, nodes_desc, collect, plain)
+    if not plain:
+        cell_op_chw.launches += 1
+    return out
+
+
+sep_conv_chw.launches = 0
+pair_op_chw.launches = 0
+cell_op_chw.launches = 0

@@ -1,0 +1,100 @@
+"""MobileNet-v2 with BatchNorm folded, every stage one fused kernel
+(counterpart: segtpu/models/fast_encoder.py::mbv2_chw_apply).
+
+``fold_encoder(enc, compute_dtype)`` folds eval BatchNorm into the conv
+weights of a ``MobileNetV2`` from its f32 weights and returns a
+``FoldedMobileNetV2``: the s2d stem as one ``conv_chw`` (k=2, relu6),
+the 13 stride-1 blocks as ``inv_res_chw`` and the 4 stride-2 blocks as
+``inv_res_s2_chw``. Its forward takes the space-to-depth planes
+[N, 12, H/2, W/2] and returns the four taps (strides 4/8/16/32), with
+the tap rule of ``encoders.MobileNetV2``. Dense weights are rounded to
+the compute dtype once, after folding in f32; depthwise weights and
+biases stay f32 (the JAX path's numerics).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.nn as nn
+
+from segtpu_torch.kernels.chw_ops import (conv_chw, fold_bn, inv_res_chw,
+                                          inv_res_s2_chw)
+from segtpu_torch.models.encoders import (_MBV2_CFG, _TAP_STAGES,
+                                          MobileNetV2, stem_s2d_kernel)
+
+
+def _fold(conv_bn):
+    if conv_bn.w.dtype != torch.float32:
+        raise ValueError(f"fold_encoder folds f32 weights, got "
+                         f"{conv_bn.w.dtype}: fold before casting")
+    return fold_bn(conv_bn.w, conv_bn.scale, conv_bn.bias, conv_bn.mean,
+                   conv_bn.var)
+
+
+class FoldedInvRes(nn.Module):
+    """One inverted residual with BN folded: expand (None for t = 1),
+    depthwise 3x3 at ``stride`` and project, as buffers."""
+
+    def __init__(self, blk, compute_dtype):
+        super().__init__()
+        self.stride = blk.dw.stride
+        self.residual = blk.residual
+        if hasattr(blk, "expand"):
+            w, b = _fold(blk.expand)
+            self.register_buffer("w_exp", w.to(compute_dtype))
+            self.register_buffer("b_exp", b)
+        else:
+            self.register_buffer("w_exp", None)
+            self.register_buffer("b_exp", None)
+        w, b = _fold(blk.dw)
+        self.register_buffer("w_dw", w)
+        self.register_buffer("b_dw", b)
+        w, b = _fold(blk.project)
+        self.register_buffer("w_proj", w.to(compute_dtype))
+        self.register_buffer("b_proj", b)
+
+    def forward(self, x, use_kernels: bool = True):
+        args = (x, self.w_exp, self.b_exp, self.w_dw, self.b_dw,
+                self.w_proj, self.b_proj)
+        if self.stride == 2:
+            return inv_res_s2_chw(*args, use_kernels=use_kernels)
+        return inv_res_chw(*args, residual=self.residual,
+                           use_kernels=use_kernels)
+
+
+class FoldedMobileNetV2(nn.Module):
+    """s2d12 planes [N, 12, H/2, W/2] -> the 4 encoder taps."""
+
+    def __init__(self, enc: MobileNetV2, compute_dtype):
+        super().__init__()
+        w, b = _fold(enc.stem)
+        self.register_buffer("stem_w", stem_s2d_kernel(w).to(compute_dtype))
+        self.register_buffer("stem_b", b)
+        self.blocks = nn.ModuleList(FoldedInvRes(blk, compute_dtype)
+                                    for blk in enc.blocks)
+        # a tap after the last block of each tap stage (encoders.py)
+        self.tap_after = []
+        for stage, (_, _, n, _) in enumerate(_MBV2_CFG):
+            self.tap_after += [stage in _TAP_STAGES and i == n - 1
+                               for i in range(n)]
+
+    def stem(self, x12, use_kernels: bool = True):
+        return conv_chw(x12, self.stem_w, self.stem_b, k=2, act="relu6",
+                        use_kernels=use_kernels)
+
+    def forward(self, x12, use_kernels: bool = True) -> List[torch.Tensor]:
+        y = self.stem(x12, use_kernels)
+        taps = []
+        for blk, is_tap in zip(self.blocks, self.tap_after):
+            y = blk(y, use_kernels)
+            if is_tap:
+                taps.append(y)
+        return taps
+
+
+def fold_encoder(enc: MobileNetV2, compute_dtype=torch.bfloat16
+                 ) -> FoldedMobileNetV2:
+    """A ``FoldedMobileNetV2`` of ``enc``'s f32 weights, on enc's device."""
+    return FoldedMobileNetV2(enc, compute_dtype).eval()
