@@ -56,6 +56,24 @@ Phases, each a hard failure (non-zero exit) when it fails:
    PyTorch library call computing the same function where there is
    one, and predict_batch at b8 from a device-resident batch.
 
+8. sharded: four logical shards on the one card (devices = [cuda:0] * 4,
+   run one after another). upsample_argmax_sharded on the tail phase's
+   logits, every shard at n = 2, 4, 8, bf16 and f32: bit-identical to its
+   plain twin and to the unsharded kernel's rows. make_sharded_infer_fn
+   mode="space", n = 4, on the slice phase's model and b8 1024x2048
+   frames (the sharded path: counts reset just before, read just after,
+   SPACE_LAUNCHES): masks >= 99.9 % equal to the unsharded engine's
+   (arch0's pool branch sums its mean per shard), encoder taps
+   bit-equal. Every kernel call of the sharded decoder on that path
+   (quarter-height windows with their halos, resize_chw's row-window
+   form) is recorded and replayed against its plain twin as in phase 5,
+   and the whole sharded call is run again on the plain twins
+   (use_kernels=False): logits and masks bit-equal to the kernels'. arch2 and a pool-free arch0 (whose first decoder block
+   computes whole at n = 4) at 2x512x1024 (arch2 also at n = 2): masks
+   bit-equal. mode="data", 4 parts of the b8 batch: masks bit-equal,
+   DATA_LAUNCHES. Times with CUDA events: the sharded tail per shard and
+   summed, one space call and one data call beside the unsharded call.
+
 Prints the kernels JSON line and the card's name and power limit, then,
 last, {"ok": true, "device": {...}}. Writes chiprun_out/chip_smoke.json.
 """
@@ -794,26 +812,40 @@ PATH_LAUNCHES = {"front": 1, "conv_chw": 4, "inv_res_chw": 13,
                  "inv_res_s2_chw": 4, "pw_chain_chw": 1, "pw_multi_chw": 0,
                  "sep_conv_chw": 3, "pair_op_chw": 0, "cell_op_chw": 3,
                  "resize_chw": 3, "upsample_argmax": 1,
-                 "upsample_argmax_flat": 0}
+                 "upsample_argmax_flat": 0, "upsample_argmax_sharded": 0}
 G2_LAUNCHES = {"front": 1, "conv_chw": 5, "inv_res_chw": 13,
                "inv_res_s2_chw": 4, "pw_chain_chw": 2, "pw_multi_chw": 1,
                "sep_conv_chw": 3, "pair_op_chw": 3, "cell_op_chw": 3,
                "resize_chw": 3, "upsample_argmax": 0,
-               "upsample_argmax_flat": 1}
+               "upsample_argmax_flat": 1, "upsample_argmax_sharded": 0}
+# one b8 1024x2048 call over N_SHARDS logical shards: all three decoder
+# blocks shard, so every kernel of the unsharded path runs once per shard,
+# the fused cell suffix as one cell_op_chw call per node (3 blocks x 3 nodes)
+N_SHARDS = 4
+SPACE_LAUNCHES = {"front": 4, "conv_chw": 16, "inv_res_chw": 52,
+                  "inv_res_s2_chw": 16, "pw_chain_chw": 4, "pw_multi_chw": 0,
+                  "sep_conv_chw": 12, "pair_op_chw": 0, "cell_op_chw": 36,
+                  "resize_chw": 12, "upsample_argmax": 0,
+                  "upsample_argmax_flat": 0, "upsample_argmax_sharded": 4}
+DATA_LAUNCHES = {n: N_SHARDS * v for n, v in PATH_LAUNCHES.items()}
+# arch0 without its pool branch: halos of 12 rows and no re-associated sum
+NO_POOL = [[2, [0, 1, 3, 9], [2, 0, 5, 2], [1, 3, 8, 0]],
+           [[3, 2], [4, 1], [5, 0]]]
 
 
 def kernel_wrappers():
     from segtpu_torch.kernels import chw_ops
     from segtpu_torch.kernels.front import normalize_s2d_front
     from segtpu_torch.kernels.resize_chw import resize_chw
-    from segtpu_torch.kernels.upsample_argmax import (upsample_argmax,
-                                                      upsample_argmax_flat)
+    from segtpu_torch.kernels.upsample_argmax import (
+        upsample_argmax, upsample_argmax_flat, upsample_argmax_sharded)
     out = {"front": normalize_s2d_front}
     for n in ("conv_chw", "inv_res_chw", "inv_res_s2_chw", "pw_chain_chw",
               "pw_multi_chw", "sep_conv_chw", "pair_op_chw", "cell_op_chw"):
         out[n] = getattr(chw_ops, n)
     out.update(resize_chw=resize_chw, upsample_argmax=upsample_argmax,
-               upsample_argmax_flat=upsample_argmax_flat)
+               upsample_argmax_flat=upsample_argmax_flat,
+               upsample_argmax_sharded=upsample_argmax_sharded)
     return out
 
 
@@ -921,7 +953,7 @@ def phase_slice(torch):
         np.array_equal(s, seg.predict(f)) for s, f in zip(streamed, stream_in)),
         "predict_stream differs from predict")
     print("[slice] predict_stream: 3 frames in order")
-    return seg, ref, frames, launches, rate
+    return seg, ref, frames, launches, rate, masks
 
 
 def phase_timing(torch, img, logits, seg, ref, frames):
@@ -946,6 +978,183 @@ def phase_timing(torch, img, logits, seg, ref, frames):
     print(f"[timing] slice b8: {N * 1000.0 / t['slice_b8']:.1f} images/s "
           f"device-resident")
     return t
+
+
+def sharded_tail(torch, logits):
+    """upsample_argmax_sharded on the tail phase's logits: every shard at
+    n = 2, 4, 8, bf16 and f32, bit for bit against its plain twin and
+    against the unsharded kernel's rows; the N_SHARDS shards timed.
+    Returns the kernel's row of the kernels line, without its launches."""
+    import torch.nn.functional as F
+    from segtpu_torch.kernels.upsample_argmax import (
+        upsample_argmax, upsample_argmax_sharded,
+        upsample_argmax_sharded_plain)
+    from segtpu_torch.parallel import halo_exchange
+    worst = 0
+    for x in (logits, logits.float()):
+        full = upsample_argmax(x, (H, W))
+        for n in (2, 4, 8):
+            rows = H // n
+            for s, e in enumerate(halo_exchange(list(x.chunk(n, dim=2)), 1, 1)):
+                got = upsample_argmax_sharded(e, (H, W), shard=s, n_shards=n)
+                want = upsample_argmax_sharded_plain(e, (H, W), shard=s,
+                                                     n_shards=n)
+                torch.cuda.synchronize()
+                check(got.shape == (N, rows, W) and got.dtype == torch.uint8,
+                      f"sharded tail shape {tuple(got.shape)}")
+                worst = max(worst, (got.int() - want.int()).abs().max().item())
+                check(torch.equal(got, want),
+                      f"sharded tail {x.dtype} shard {s}/{n} differs from its "
+                      f"plain twin")
+                check(torch.equal(got, full[:, s * rows:(s + 1) * rows]),
+                      f"sharded tail {x.dtype} shard {s}/{n} differs from the "
+                      f"unsharded kernel's rows")
+        print(f"[sharded] tail {x.dtype}: every shard at n=2,4,8 bit-identical "
+              f"to its twin and to the unsharded rows")
+    n, rows = N_SHARDS, H // N_SHARDS
+    r = dict(max_abs_err=worst, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0,
+             dot=0, f32=0, n=n, per_shard_ms=[])
+    for s, e in enumerate(halo_exchange(list(logits.chunk(n, dim=2)), 1, 1)):
+        ms = cuda_ms(lambda: upsample_argmax_sharded(
+            e, (H, W), shard=s, n_shards=n), 20)
+        r["per_shard_ms"].append(ms)
+        r["ms"] += ms
+        r["plain_ms"] += cuda_ms(lambda: upsample_argmax_sharded_plain(
+            e, (H, W), shard=s, n_shards=n), 3)
+        r["library_ms"] += cuda_ms(lambda: F.interpolate(
+            e.float(), size=(rows, W), mode="bilinear",
+            align_corners=True).argmax(1), 10)
+        r["bytes"] += e.numel() * e.element_size() + N * rows * W
+        # as the unsharded tail's count in bounds(), over the shard's rows
+        r["f32"] += N * K * rows * (3 * e.shape[3] + 4 * W)
+    print(f"[timing] sharded tail n={n}: per shard "
+          f"{[round(v, 4) for v in r['per_shard_ms']]} ms, summed "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+          f"{r['library_ms']:.4f} ms")
+    return r
+
+
+def phase_sharded(torch, seg, ref, frames, masks, t):
+    """Phase 8 (see the module doc). Returns the sharded path's launch
+    counts; adds its times to ``t``."""
+    from segtpu_torch.engine import Segmenter, ShardedSegmenter
+    from segtpu_torch.kernels.front import normalize_s2d_front
+    from segtpu_torch.models import ARCHS
+    from segtpu_torch.models.fast_decoder import decoder_shard_plan
+    from segtpu_torch.parallel import make_mesh, make_sharded_infer_fn
+    n = N_SHARDS
+    devices = [torch.device("cuda", 0)] * n
+    x = torch.from_numpy(frames).cuda()
+    plan = decoder_shard_plan(ARCHS["arch0"], (H, W), n)
+    print(f"[sharded] arch0 {H}x{W} n={n} plan: "
+          f"{[b['sharded'] for b in plan['blocks']]}")
+
+    # the sharded path: one space-mode call, counts read around it alone
+    space = make_sharded_infer_fn(seg, make_mesh(1, n, devices=devices),
+                                  mode="space")
+    reset_counts()
+    got = space(x)
+    launches = read_counts()
+    torch.cuda.synchronize()
+    print(f"[sharded] space n={n} b8 {H}x{W}: launches={launches}")
+    check(launches == SPACE_LAUNCHES,
+          f"space-mode launches {launches}, expected {SPACE_LAUNCHES}")
+    check(got.shape == (N, H, W) and got.dtype == torch.uint8,
+          f"space-mode mask shape {tuple(got.shape)} {got.dtype}")
+    rate = float((got.cpu().numpy() == masks).mean())
+    print(f"[sharded] space masks vs the unsharded engine: agreement={rate!r}")
+    check(rate >= 0.999, f"space-mode agreement {rate} < 99.9 %")
+    sh = ShardedSegmenter(seg, devices)
+    with torch.inference_mode():
+        want_taps = seg.encoder(normalize_s2d_front(x))
+    for i, (tap, whole) in enumerate(zip(sh.infer_shards(x, return_taps=True),
+                                         want_taps)):
+        check(torch.equal(torch.cat(tap, dim=2), whole),
+              f"sharded encoder tap {i} differs from the unsharded tap")
+    print("[sharded] arch0 encoder taps: 4 bit-equal")
+    del want_taps
+
+    # every launch of the sharded decoder against its twin at this path's
+    # shapes: windows of H/n rows plus halo, resize_chw with shard=(s, n, h)
+    logits_k, calls = record_decoder(
+        torch, sh.decoder, sh.infer_shards(x, return_taps=True))
+    seen = {name: 0 for name in DECODER_KERNELS}
+    windows = 0
+    with torch.inference_mode():
+        for i, (name, fn, a) in enumerate(calls):
+            got_c = replay(fn, a, True)
+            _compare(torch, got_c, replay(fn, a, False),
+                     f"space call {i:2d} {name} {tuple(got_c.shape)}"
+                     + (f" shard={a['shard']}" if a.get("shard") else ""))
+            seen[name] += 1
+            windows += bool(a.get("shard"))
+    stems = {"conv_chw": n}                 # the encoder's stem, per shard
+    check(seen == {name: SPACE_LAUNCHES[name] - stems.get(name, 0)
+                   for name in DECODER_KERNELS},
+          f"sharded decoder calls compared {seen}, launches {SPACE_LAUNCHES}")
+    check(windows == SPACE_LAUNCHES["resize_chw"],
+          f"{windows} of the resize_chw calls took a row window")
+    print(f"[sharded] decoder calls against their twins: {seen}, "
+          f"{windows} row-window resizes")
+    del calls
+
+    # the whole sharded call on the plain twins
+    ref_sh = ShardedSegmenter(ref, devices)
+    with torch.inference_mode():
+        want_logits = ref_sh.decoder(ref_sh.infer_shards(x, return_taps=True))
+    for s, (lk, lp) in enumerate(zip(logits_k, want_logits)):
+        check(torch.equal(lk, lp), f"shard {s}: sharded logits differ from "
+              f"the plain twins' sharded logits")
+    check(torch.equal(got, ref_sh.predict(x)),
+          "space masks differ from the plain twins' space masks")
+    print(f"[sharded] space n={n} vs use_kernels=False: logits "
+          f"{tuple(logits_k[0].shape)} x {n} and masks bit-equal")
+    del logits_k, want_logits, ref_sh
+
+    # genotypes without a pool branch: masks bit for bit
+    rng = np.random.default_rng(8)
+    small = rng.integers(0, 256, (2, 512, 1024, 3), dtype=np.uint8)
+    for name, genotype, ns in (("arch2", ARCHS["arch2"], (2, 4)),
+                               ("no_pool", NO_POOL, (4,))):
+        seg_g = Segmenter(make_model(torch, genotype), device="cuda")
+        want = seg_g.predict_batch(small)
+        for k in ns:
+            shards = [b["sharded"] for b in decoder_shard_plan(
+                genotype, small.shape[1:3], k)["blocks"]]
+            m = ShardedSegmenter(seg_g, devices[:1] * k).predict(small)
+            same = bool(np.array_equal(m, want))
+            print(f"[sharded] {name} 2x512x1024 n={k} blocks sharded="
+                  f"{shards}: bit-equal={same}")
+            check(same, f"{name} space masks at n={k} differ from the "
+                  f"unsharded engine's")
+        if name == "no_pool":
+            check(not all(shards), "no block of the pool-free genotype "
+                  "computed whole")
+        del seg_g
+
+    # batch fan-out: 4 parts of the b8 batch
+    data = make_sharded_infer_fn(seg, make_mesh(n, 1, devices=devices),
+                                 mode="data")
+    reset_counts()
+    got_d = data(x)
+    data_launches = read_counts()
+    torch.cuda.synchronize()
+    print(f"[sharded] data {n} parts of b8: launches={data_launches}")
+    check(data_launches == DATA_LAUNCHES,
+          f"data-mode launches {data_launches}, expected {DATA_LAUNCHES}")
+    same_d = got_d.cpu().numpy() == masks
+    check(bool(same_d.all()),
+          f"data-mode masks differ from the unsharded engine's: agreement "
+          f"{float(same_d.mean())!r}, per frame "
+          f"{same_d.mean(axis=(1, 2)).tolist()}")
+    print("[sharded] data masks: bit-equal")
+
+    t["space_b8"] = cuda_ms(lambda: space(x), 5)
+    t["data_b8"] = cuda_ms(lambda: data(x), 5)
+    print(f"[timing] {n} logical shards on one card, one after another: "
+          f"space {t['space_b8']:.4f} ms, data {t['data_b8']:.4f} ms, "
+          f"unsharded {t['slice_b8']:.4f} ms per b8 call")
+    return launches, rate
 
 
 def conv_work(x_shape, cout: int, k: int, depthwise: bool, elt: int):
@@ -1018,7 +1227,10 @@ KERNEL_ROWS = {
                         "segtpu/kernels/upsample_argmax.py:221"),
     "upsample_argmax_flat": ("upsample_argmax.cu",
                              "segtpu/kernels/upsample_argmax.py:413"),
+    "upsample_argmax_sharded": ("upsample_argmax.cu",
+                                "segtpu/kernels/upsample_argmax.py:276"),
 }
+SHARDED_ONLY = ("upsample_argmax_sharded",)
 
 
 def main() -> None:
@@ -1039,8 +1251,11 @@ def main() -> None:
     logits, tail_err = phase_tail(torch)
     work, stage_ms = phase_encoder(torch, img)
     dec_ms = phase_decoder(torch, work)
-    seg, ref, frames, launches, _ = phase_slice(torch)
+    seg, ref, frames, launches, _, masks = phase_slice(torch)
     t = phase_timing(torch, img, logits, seg, ref, frames)
+    work["upsample_argmax_sharded"] = sharded_tail(torch, logits)
+    space_launches, space_rate = phase_sharded(torch, seg, ref, frames, masks, t)
+    launches.update({n: space_launches[n] for n in SHARDED_ONLY})
     for name, r in work.items():
         for key in ("ms", "plain_ms", "library_ms"):
             t[f"{name}_{key}_path_sum"] = r[key]
@@ -1059,7 +1274,9 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": f"segtpu_torch/csrc/{src}",
             "replaces": replaces, "launches": launches[name],
-            "path": "G2 b8 512x512" if name in G2_ONLY else "main b8 1024x2048",
+            "path": "G2 b8 512x512" if name in G2_ONLY else
+            f"space n={N_SHARDS} b8 1024x2048" if name in SHARDED_ONLY else
+            "main b8 1024x2048",
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b[name][0],
             "bound_by": b[name][1], "library_ms": r["library_ms"]})
@@ -1069,7 +1286,12 @@ def main() -> None:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"gpu": gpu, "kernels": kernels, "timing_ms": t,
-                   "encoder_stage_ms": stage_ms, "decoder_call_ms": dec_ms},
+                   "encoder_stage_ms": stage_ms, "decoder_call_ms": dec_ms,
+                   "sharded": {
+                       "n_shards": N_SHARDS, "space_launches": space_launches,
+                       "space_mask_agreement": space_rate,
+                       "tail_per_shard_ms":
+                           work["upsample_argmax_sharded"]["per_shard_ms"]}},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(gpu)
@@ -1079,16 +1301,31 @@ def main() -> None:
 
 
 def profile(torch, seg, frames):
-    """Device time by kernel over two b8 predict_batch calls."""
+    """Device time by kernel over two b8 calls of the unsharded engine,
+    then of the space-sharded one (N_SHARDS logical shards), each beside
+    the calls' time on the host's clock."""
     from torch.profiler import ProfilerActivity, profile as prof
+    from segtpu_torch.engine import ShardedSegmenter
     x = torch.from_numpy(frames).cuda()
-    seg.predict_batch(x)
-    torch.cuda.synchronize()
-    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        for _ in range(2):
-            seg.predict_batch(x)
+    sharded = ShardedSegmenter(seg, [torch.device("cuda", 0)] * N_SHARDS)
+    for what, fn in (("unsharded", seg.predict_batch),
+                     (f"space n={N_SHARDS}", sharded.predict)):
+        fn(x)
         torch.cuda.synchronize()
-    print(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                fn(x)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        avgs = p.key_averages()
+        # kernels only: an operator's row repeats its kernels' time
+        dev_ms = sum(getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0) for e in avgs
+                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        print(f"[profile] {what}: two calls {wall_ms:.2f} ms on the host's "
+              f"clock (profiler on), {dev_ms:.2f} ms of device time")
+        print(avgs.table(sort_by="cuda_time_total", row_limit=22))
 
 
 if __name__ == "__main__":

@@ -1,2 +1,2 @@
 from segtpu_torch.engine.inference import (  # noqa: F401
-    STRIDE, Segmenter, pad_to_stride)
+    STRIDE, Segmenter, ShardedSegmenter, pad_to_stride)

@@ -31,7 +31,8 @@ run.
 
 from __future__ import annotations
 
-from typing import Tuple
+import copy
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,9 +42,13 @@ from segtpu_torch.core.resize import resize_bilinear
 from segtpu_torch.kernels.front import normalize_s2d_front
 from segtpu_torch.kernels.upsample_argmax import (flat_tail_profitable,
                                                   upsample_argmax,
-                                                  upsample_argmax_flat)
-from segtpu_torch.models.fast_decoder import fold_decoder
-from segtpu_torch.models.fast_encoder import fold_encoder
+                                                  upsample_argmax_flat,
+                                                  upsample_argmax_sharded)
+from segtpu_torch.models.fast_decoder import (FoldedMicroDecoder,
+                                              ShardedMicroDecoder,
+                                              fold_decoder)
+from segtpu_torch.models.fast_encoder import fold_encoder, mbv2_chw_sharded
+from segtpu_torch.parallel.collectives import halo_exchange, per_device
 from segtpu_torch.utils.helpers import (IMG_MEAN, IMG_SCALE, IMG_STD,
                                         resolve_device)
 
@@ -107,6 +112,19 @@ class Segmenter:
         self.decoder = fold_decoder(model.decoder,
                                     compute_dtype).to(self.device)
         self.num_classes = model.num_classes
+
+    def replica(self, device) -> "Segmenter":
+        """This engine with copies of its folded weights on ``device``
+        (itself when that is its own device)."""
+        device = resolve_device(device)
+        # "cuda" and "cuda:0" name one card: compare where tensors land
+        if torch.empty(0, device=device).device == self.encoder.stem_b.device:
+            return self
+        rep = copy.copy(self)
+        rep.device = device
+        rep.encoder = copy.deepcopy(self.encoder).to(device)
+        rep.decoder = copy.deepcopy(self.decoder).to(device)
+        return rep
 
     def infer(self, imgs):
         """uint8 [N, H, W, 3] tensor on the engine's device -> uint8
@@ -207,3 +225,102 @@ class Segmenter:
                 yield finish(*pending)
             pending = (out, squeeze)
         yield finish(*pending)
+
+
+class ShardedSegmenter:
+    """One frame's H split over ``devices`` (counterpart:
+    segtpu/engine/inference.py::build_sharded_pallas_infer).
+
+    >>> sh = ShardedSegmenter(seg, [torch.device("cuda:0")] * 4)
+    >>> masks = sh.predict(imgs_u8)            # uint8 [N, H, W, 3]
+
+    Shard s of n runs, on ``devices[s]``: the front kernel on its H/n
+    rows, the folded encoder with an overlap-discard halo exchange
+    around every stage (``mbv2_chw_sharded``), the H-sharded micro
+    decoder (``ShardedMicroDecoder``) and ``upsample_argmax_sharded`` on
+    its logit rows and one halo row of each neighbour, and returns its
+    H/n rows of the mask. The batch is not split. ``devices`` may name
+    one device several times (logical shards of one card, which then run
+    one after another); the folded weights are copied once per distinct
+    device. Without a global-average-pool op in the genotype the logits
+    are the unsharded engine's bit for bit, and so are the masks wherever
+    that engine takes the H-first tail (a decoder 128 wide takes the
+    W-first one, whose roundings differ); a pool branch's mean is summed
+    per shard, which moves near-ties.
+
+    Frames are stride-32 multiples with H % (2 n) == 0. The template
+    family is not ported yet and raises ``NotImplementedError``.
+    """
+
+    def __init__(self, seg: Segmenter, devices: Sequence):
+        if not isinstance(seg.decoder, FoldedMicroDecoder):
+            raise NotImplementedError(
+                "sharded serving of the template (WACV'20) decoder family "
+                "(gathered taps, replicated decoder) is not ported to "
+                "segtpu_torch yet (ROADMAP.md Queue A)")
+        self.devices = [resolve_device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("sharded inference needs at least one device")
+        self.n = len(self.devices)
+        self.seg = seg
+        reps = per_device(self.devices, seg.replica)
+        self.encoders = [r.encoder for r in reps]
+        self.decoder = ShardedMicroDecoder(
+            [r.decoder for r in reps], align_corners=seg.align_corners,
+            use_kernels=seg.use_kernels)
+
+    def check_shape(self, h: int, w: int):
+        n = self.n
+        if pad_to_stride((h, w)) != (h, w):
+            raise ValueError(
+                f"sharded inference needs stride-{STRIDE}-multiple "
+                f"shapes, got {h}x{w} (pad on host or use mode='data')")
+        if h % (2 * n):
+            raise ValueError(f"H={h} must divide 2*n_shards={2 * n}")
+        if (h // n) % 2 or w % 2:
+            raise ValueError("sharded s2d front needs even local H and W")
+
+    @torch.inference_mode()
+    def infer_shards(self, imgs, *, return_taps: bool = False):
+        """uint8 [N, H, W, 3] tensor -> the shards' uint8 mask rows
+        [N, H/n, W], each on its shard's device (asynchronous on CUDA).
+        ``return_taps`` gives the sharded encoder's taps instead."""
+        if imgs.ndim != 4:
+            raise ValueError(f"sharded inference takes [N, H, W, 3], got "
+                             f"{tuple(imgs.shape)}")
+        n, seg = self.n, self.seg
+        _, h, w, _ = imgs.shape
+        self.check_shape(h, w)
+        hl = h // n
+        x12s = [normalize_s2d_front(
+            imgs[:, s * hl:(s + 1) * hl].to(dev).contiguous(),
+            out_dtype=seg.compute_dtype, use_kernels=seg.use_kernels)
+            for s, dev in enumerate(self.devices)]
+        taps = mbv2_chw_sharded(self.encoders, x12s, seg.use_kernels)
+        if return_taps:
+            return taps
+        logits = halo_exchange(self.decoder(taps), 1, 1)
+        return [upsample_argmax_sharded(
+            x, (h, w), shard=s, n_shards=n,
+            align_corners=seg.align_corners, use_kernels=seg.use_kernels)
+            for s, x in enumerate(logits)]
+
+    def infer(self, imgs):
+        """uint8 [N, H, W, 3] tensor -> uint8 mask [N, H, W] on the first
+        shard's device."""
+        rows = self.infer_shards(imgs)
+        return torch.cat([r.to(self.devices[0]) for r in rows], dim=1)
+
+    def predict(self, img_u8):
+        """A batch [N, H, W, 3] (or one frame [H, W, 3]) of uint8: numpy
+        in gives numpy out, a tensor in gives a tensor on the first
+        shard's device."""
+        if isinstance(img_u8, torch.Tensor):
+            squeeze = img_u8.ndim == 3
+            out = self.infer(img_u8[None] if squeeze else img_u8)
+            return out[0] if squeeze else out
+        imgs, squeeze = _stage_u8(img_u8)
+        out = self.infer(torch.from_numpy(imgs)).cpu().numpy()
+        return out[0] if squeeze else out
+
+    predict_batch = predict

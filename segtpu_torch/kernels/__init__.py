@@ -10,7 +10,8 @@ from segtpu_torch.kernels.chw_ops import (  # noqa: F401
 from segtpu_torch.kernels.front import (  # noqa: F401
     normalize_s2d_front, normalize_s2d_front_plain)
 from segtpu_torch.kernels.resize_chw import (  # noqa: F401
-    resize_chw, resize_chw_plain)
+    resize_chw, resize_chw_plain, shard_interp_bands)
 from segtpu_torch.kernels.upsample_argmax import (  # noqa: F401
     upsample_argmax, upsample_argmax_flat, upsample_argmax_flat_plain,
-    upsample_argmax_plain)
+    upsample_argmax_plain, upsample_argmax_sharded,
+    upsample_argmax_sharded_plain)

@@ -84,9 +84,13 @@ def _use_plain(x, use_kernels: bool, what: str) -> bool:
     return not use_kernels
 
 
-def _stream_ptr(t) -> int:
+def _launch(fn, t, *args) -> int:
+    """Call the C entry ``fn(*args, stream)`` with ``t``'s device current
+    and on that device's current stream: the entry launches on the
+    current device, so a tensor of another card than the thread's
+    current one needs the switch around the launch itself."""
     with torch.cuda.device(t.device):
-        return torch.cuda.current_stream().cuda_stream
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 @functools.lru_cache(maxsize=None)
@@ -232,11 +236,11 @@ def conv_chw(x, w, bias, acc=None, vec_acc=None, *, k: int,
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(x.data_ptr(), wk.data_ptr(), bk.data_ptr(),
-            acc.data_ptr() if acc is not None else None,
-            vk.data_ptr() if vk is not None else None, out.data_ptr(),
-            b, c, cout, h, wd, k, dilation, int(depthwise), _ACT_CODE[act],
-            int(x.dtype == torch.bfloat16), _stream_ptr(x))
+    rc = _launch(fn, x, x.data_ptr(), wk.data_ptr(), bk.data_ptr(),
+                 acc.data_ptr() if acc is not None else None,
+                 vk.data_ptr() if vk is not None else None, out.data_ptr(),
+                 b, c, cout, h, wd, k, dilation, int(depthwise),
+                 _ACT_CODE[act], int(x.dtype == torch.bfloat16))
     if rc != 0:
         raise RuntimeError(f"conv_chw kernel launch failed: CUDA error {rc}")
     conv_chw.launches += 1
@@ -415,11 +419,12 @@ def _inv_res_launch(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(x.data_ptr(), we.data_ptr() if we is not None else None,
-            be.data_ptr() if be is not None else None, wd.data_ptr(),
-            bd.data_ptr(), wp.data_ptr(), bp.data_ptr(), out.data_ptr(),
-            b, cin, cmid, cout, h, w, stride, th, tw, mc, int(residual),
-            int(x.dtype == torch.bfloat16), _stream_ptr(x))
+    rc = _launch(fn, x, x.data_ptr(),
+                 we.data_ptr() if we is not None else None,
+                 be.data_ptr() if be is not None else None, wd.data_ptr(),
+                 bd.data_ptr(), wp.data_ptr(), bp.data_ptr(), out.data_ptr(),
+                 b, cin, cmid, cout, h, w, stride, th, tw, mc, int(residual),
+                 int(x.dtype == torch.bfloat16))
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     return out
@@ -525,9 +530,9 @@ def _pw_launch(xs, stages, acts, what):
                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
     a = [ctypes.addressof(arr) for arr in arrays]
-    rc = fn(a[0], a[1], len(xs), a[2], a[3], a[4], a[5], a[6], len(stages),
-            out.data_ptr(), b, h * w, int(dt == torch.bfloat16),
-            _stream_ptr(xs[0]))
+    rc = _launch(fn, out, a[0], a[1], len(xs), a[2], a[3], a[4], a[5], a[6],
+                 len(stages), out.data_ptr(), b, h * w,
+                 int(dt == torch.bfloat16))
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     return out
@@ -697,10 +702,11 @@ def _node_launch(pairs, add, vec, shape, dt, dev, what):
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(len(pairs), *[ctypes.addressof(a) for a in arrays],
-            None if add is None else add.data_ptr(),
-            None if vk is None else vk.data_ptr(), out.data_ptr(),
-            b, cout, h, w, int(dt == torch.bfloat16), _stream_ptr(out))
+    rc = _launch(fn, out, len(pairs),
+                 *[ctypes.addressof(a) for a in arrays],
+                 None if add is None else add.data_ptr(),
+                 None if vk is None else vk.data_ptr(), out.data_ptr(),
+                 b, cout, h, w, int(dt == torch.bfloat16))
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     return out
@@ -837,8 +843,8 @@ def _cell(srcs, nodes_desc, collect, plain: bool):
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(ctypes.addressof(arr), len(ents), out.data_ptr(), out.numel(),
-            int(out.dtype == torch.bfloat16), _stream_ptr(out))
+    rc = _launch(fn, out, ctypes.addressof(arr), len(ents), out.data_ptr(),
+                 out.numel(), int(out.dtype == torch.bfloat16))
     if rc != 0:
         raise RuntimeError(f"cell_op_chw collect launch failed: CUDA error "
                            f"{rc}")

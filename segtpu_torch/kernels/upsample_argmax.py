@@ -1,6 +1,6 @@
 """Fused bilinear upsample + argmax mask decode
-(counterpart: segtpu/kernels/upsample_argmax.py::upsample_argmax and
-::upsample_argmax_flat).
+(counterpart: segtpu/kernels/upsample_argmax.py::upsample_argmax,
+::upsample_argmax_flat and ::upsample_argmax_sharded).
 
 ``upsample_argmax`` launches the CUDA kernel (csrc/upsample_argmax.cu)
 on a CUDA tensor and runs ``upsample_argmax_plain`` on a CPU tensor, or
@@ -19,6 +19,10 @@ upsampling to the grid and cropping after.
 ``upsample_argmax_flat`` takes the logits as [B, K, h*w] (the same
 memory) and runs the W pass first, as the JAX package's flat tail does,
 with its own kernel and plain twin.
+
+``upsample_argmax_sharded`` computes one shard's rows of the H-first
+mask from that shard's logit rows and one halo row of each neighbour,
+with its own kernel and plain twin, bit for bit the unsharded rows.
 """
 
 from __future__ import annotations
@@ -32,14 +36,11 @@ import torch
 from segtpu_torch.core.resize import _interp_matrix
 
 
-@functools.lru_cache(maxsize=None)
-def interp_taps(n_in: int, n_out: int, align_corners: bool, n_keep: int,
-                bf16_weights: bool):
-    """2-tap tables of the first ``n_keep`` rows of ``_interp_matrix``:
-    (taps int32 [2, n_keep], weights float32 [2, n_keep]) — low tap,
-    then high tap. A row with one (merged) entry gets weight 0 on its
-    high tap. ``bf16_weights`` rounds the weights to bf16."""
-    mat = _interp_matrix(n_in, n_out, align_corners)[:n_keep]
+def matrix_taps(mat: np.ndarray):
+    """2-tap tables of the rows of an interpolation matrix: (taps int32
+    [2, rows], weights float32 [2, rows]) — low tap, then high tap. A
+    row with one (merged) entry gets weight 0 on its high tap."""
+    n_keep = len(mat)
     taps = np.zeros((2, n_keep), np.int32)
     wts = np.zeros((2, n_keep), np.float32)
     for o, row in enumerate(mat):
@@ -49,12 +50,21 @@ def interp_taps(n_in: int, n_out: int, align_corners: bool, n_keep: int,
         taps[:, o] = nz[0], nz[-1]
         wts[0, o] = row[nz[0]]
         wts[1, o] = row[nz[-1]] if nz.size == 2 else 0.0
+    return taps, wts
+
+
+@functools.lru_cache(maxsize=None)
+def interp_taps(n_in: int, n_out: int, align_corners: bool, n_keep: int,
+                bf16_weights: bool):
+    """``matrix_taps`` of the first ``n_keep`` rows of ``_interp_matrix``;
+    ``bf16_weights`` rounds the weights to bf16."""
+    taps, wts = matrix_taps(_interp_matrix(n_in, n_out, align_corners)[:n_keep])
     if bf16_weights:
         wts = torch.from_numpy(wts).to(torch.bfloat16).float().numpy()
     return taps, wts
 
 
-def _tables(logits, out_hw, crop_hw, align_corners):
+def _check_logits(logits):
     if logits.ndim != 4:
         raise ValueError(f"tail takes [B, K, h, w] logits, got "
                          f"{tuple(logits.shape)}")
@@ -63,6 +73,11 @@ def _tables(logits, out_hw, crop_hw, align_corners):
     _, k, h, w = logits.shape
     if not 1 <= k <= 256:
         raise ValueError(f"a uint8 mask holds at most 256 classes, got {k}")
+
+
+def _tables(logits, out_hw, crop_hw, align_corners):
+    _check_logits(logits)
+    _, k, h, w = logits.shape
     grid_h, grid_w = int(out_hw[0]), int(out_hw[1])
     ho, wo = (int(crop_hw[0]), int(crop_hw[1])) if crop_hw else (grid_h,
                                                                    grid_w)
@@ -74,14 +89,10 @@ def _tables(logits, out_hw, crop_hw, align_corners):
     return ho, wo, rows, rw, cols, cw
 
 
-def upsample_argmax_plain(logits, out_hw, *, crop_hw=None,
-                          align_corners: bool = True):
-    """Plain PyTorch version of the tail (same signature, same bits)."""
-    ho, wo, rows, rw, cols, cw = _tables(logits, out_hw, crop_hw,
-                                         align_corners)
+def _plain_core(logits, rows, rw, cols, cw, ho: int, wo: int):
+    """H pass, W pass and running argmax of the H-first tail on tables
+    already on logits' device (rows/cols int64 [2, .], rw/cw f32)."""
     dev = logits.device
-    rows, cols = (torch.from_numpy(t).long().to(dev) for t in (rows, cols))
-    rw, cw = (torch.from_numpy(t).to(dev) for t in (rw, cw))
     b, k = logits.shape[:2]
     x = logits.float()
     # H pass at every input column: [B, K, Ho, w]
@@ -97,6 +108,17 @@ def upsample_argmax_plain(logits, out_hw, *, crop_hw=None,
         best = torch.where(upd, v, best)
         idx.masked_fill_(upd, kk)
     return idx
+
+
+def upsample_argmax_plain(logits, out_hw, *, crop_hw=None,
+                          align_corners: bool = True):
+    """Plain PyTorch version of the tail (same signature, same bits)."""
+    ho, wo, rows, rw, cols, cw = _tables(logits, out_hw, crop_hw,
+                                         align_corners)
+    dev = logits.device
+    rows, cols = (torch.from_numpy(t).long().to(dev) for t in (rows, cols))
+    rw, cw = (torch.from_numpy(t).to(dev) for t in (rw, cw))
+    return _plain_core(logits, rows, rw, cols, cw, ho, wo)
 
 
 @functools.lru_cache(maxsize=16)
@@ -148,6 +170,112 @@ def upsample_argmax(logits, out_hw, *, crop_hw=None,
 
 
 upsample_argmax.launches = 0
+
+
+_HALO = 1    # a 2-tap resize reads at most one row beyond a shard's own
+
+
+def _sharded_geometry(logits_ext, out_hw, shard, n_shards, align_corners):
+    """Checks of one shard's call; returns (h, rows_out, in_row0,
+    out_row0): the frame's logit rows, the shard's mask rows, and the
+    global index of the window's first row and of the first mask row."""
+    if n_shards < 1 or not 0 <= shard < n_shards:
+        raise ValueError(f"bad shard {shard} of {n_shards}")
+    grid_h = int(out_hw[0])
+    if grid_h % n_shards:
+        raise ValueError(f"H={grid_h} must divide into n_shards={n_shards}")
+    _check_logits(logits_ext)
+    hl = logits_ext.shape[2] - 2 * _HALO
+    if hl < 1:
+        raise ValueError(f"window of {logits_ext.shape[2]} rows holds no "
+                         f"local row beside its two halo rows")
+    h, rows_out = hl * n_shards, grid_h // n_shards
+    in_row0, out_row0 = shard * hl - _HALO, shard * rows_out
+    rows, _ = interp_taps(h, grid_h, align_corners, grid_h, False)
+    rel = rows[:, out_row0:out_row0 + rows_out] - in_row0
+    if rel.min() < 0 or rel.max() >= logits_ext.shape[2]:
+        raise ValueError(
+            f"shard {shard}/{n_shards}: mask rows {out_row0}..{out_row0 + rows_out - 1} "
+            f"read logit rows {int(rel.min()) + in_row0}..{int(rel.max()) + in_row0}, "
+            f"outside the window {in_row0}..{in_row0 + logits_ext.shape[2] - 1}")
+    return h, rows_out, in_row0, out_row0
+
+
+def upsample_argmax_sharded_plain(logits_ext, out_hw, *, shard: int,
+                                  n_shards: int, align_corners: bool = True):
+    """Plain PyTorch version of ``upsample_argmax_sharded`` (same
+    signature, same bits)."""
+    h, rows_out, in_row0, out_row0 = _sharded_geometry(
+        logits_ext, out_hw, shard, n_shards, align_corners)
+    grid_h, grid_w = int(out_hw[0]), int(out_hw[1])
+    bf16 = logits_ext.dtype == torch.bfloat16
+    rows, rw = interp_taps(h, grid_h, align_corners, grid_h, bf16)
+    cols, cw = interp_taps(logits_ext.shape[3], grid_w, align_corners, grid_w,
+                           False)
+    sl = slice(out_row0, out_row0 + rows_out)
+    dev = logits_ext.device
+    rows = torch.from_numpy(rows[:, sl] - in_row0).long().to(dev)
+    rw = torch.from_numpy(np.ascontiguousarray(rw[:, sl])).to(dev)
+    cols, cw = torch.from_numpy(cols).long().to(dev), torch.from_numpy(cw).to(dev)
+    return _plain_core(logits_ext, rows, rw, cols, cw, rows_out, grid_w)
+
+
+def upsample_argmax_sharded(logits_ext, out_hw, *, shard: int, n_shards: int,
+                            align_corners: bool = True,
+                            use_kernels: bool = True):
+    """One shard's rows of the mask of an H-sharded frame (counterpart:
+    segtpu/kernels/upsample_argmax.py::upsample_argmax_sharded).
+
+    ``logits_ext`` [B, K, h/n + 2, w] holds shard ``shard``'s h/n rows
+    of the channel-first logits between one row of each neighbour
+    (``parallel.halo_exchange(xs, 1, 1)``; zeros at the ends of the
+    mesh, which no tap reads: a 2-tap resize reads at most one row
+    beyond a shard's own). ``out_hw`` = (H, W) is the whole frame.
+    Returns uint8 [B, H/n, W], row for row the bits of
+    ``upsample_argmax(full_logits, out_hw)[:, shard*H/n:(shard+1)*H/n]``:
+    the same tables, weights and order.
+
+    On a CUDA tensor this launches its own kernel (counted in
+    ``upsample_argmax_sharded.launches``), which takes the window's and
+    the mask rows' global offsets; on a CPU tensor, or with
+    ``use_kernels=False``, it runs the plain version."""
+    if logits_ext.device.type == "cpu" or (logits_ext.device.type == "cuda"
+                                           and not use_kernels):
+        return upsample_argmax_sharded_plain(
+            logits_ext, out_hw, shard=shard, n_shards=n_shards,
+            align_corners=align_corners)
+    if logits_ext.device.type != "cuda":
+        raise ValueError(f"tail runs on cuda or cpu, not {logits_ext.device}")
+    h, rows_out, in_row0, out_row0 = _sharded_geometry(
+        logits_ext, out_hw, shard, n_shards, align_corners)
+    if not logits_ext.is_contiguous():
+        raise ValueError("tail kernel needs contiguous logits")
+    b, k, hwin, w = logits_ext.shape
+    grid_h, grid_w = int(out_hw[0]), int(out_hw[1])
+    bf16 = logits_ext.dtype == torch.bfloat16
+    dev = logits_ext.device
+    # the whole frame's tables, shared by the shards of one device
+    rows, rw, cols, cw = _device_tables(h, w, grid_h, grid_w, grid_h, grid_w,
+                                        align_corners, bf16, dev)
+    from segtpu_torch.kernels._build import load
+    fn = load("upsample_argmax").segtpu_upsample_argmax_sharded
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    out = torch.empty((b, rows_out, grid_w), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(logits_ext.data_ptr(), out.data_ptr(), b, k, hwin, w, rows_out,
+                grid_w, grid_h, in_row0, out_row0, int(bf16), rows.data_ptr(),
+                rw.data_ptr(), cols.data_ptr(), cw.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"upsample_argmax_sharded kernel launch failed: "
+                           f"CUDA error {rc}")
+    upsample_argmax_sharded.launches += 1
+    return out
+
+
+upsample_argmax_sharded.launches = 0
 
 
 def flat_tail_profitable(dec_w: int) -> bool:

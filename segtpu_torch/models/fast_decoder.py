@@ -34,11 +34,23 @@ import torch.nn as nn
 from segtpu_torch.kernels.chw_ops import (cell_op_chw, conv_chw,
                                           pair_op_chw, pw_chain_chw,
                                           pw_multi_chw, sep_conv_chw)
-from segtpu_torch.kernels.resize_chw import resize_chw
-from segtpu_torch.models.fast_encoder import _fold
+from segtpu_torch.kernels.resize_chw import resize_chw, shard_interp_bands
+from segtpu_torch.models.fast_encoder import _fold, crop_h
 from segtpu_torch.models.micro_decoders import (MicroDecoder,
                                                 _cell_collect_inds)
-from segtpu_torch.ops.layer_factory import _CONV_SPECS
+from segtpu_torch.ops.layer_factory import _CONV_SPECS, OP_NAMES
+from segtpu_torch.parallel.collectives import (gather_h, halo_exchange,
+                                               per_device, sum_shards)
+
+
+def per_image(reduce, x):
+    """``reduce`` (``torch.mean`` or ``torch.sum``) of x [B, C, H, W] over
+    H and W in f32, one image at a time: [B, C]. A library reduction may
+    choose its sum order by the tensor's size; image by image every
+    frame's result has the same bits at any batch size, so a batch cut
+    into parts (``parallel`` mode "data") gives the unsharded bits."""
+    return torch.cat([reduce(x[i:i + 1], (2, 3), dtype=torch.float32)
+                      for i in range(x.shape[0])])
 
 
 class FoldedOp(nn.Module):
@@ -49,6 +61,7 @@ class FoldedOp(nn.Module):
     def __init__(self, op, compute_dtype):
         super().__init__()
         name = op.name
+        self.halo = 0        # rows the op's taps reach beyond its own row
         if name in ("skip_connect", "none"):
             self.kind = "skip" if name == "skip_connect" else "none"
             return
@@ -59,6 +72,7 @@ class FoldedOp(nn.Module):
             self.register_buffer("b", b)
             return
         self.k, self.dil, sep = _CONV_SPECS[name]
+        self.halo = self.dil * (self.k // 2)
         if sep:
             self.kind = "sep"
             self.n_reps = len(op.reps)
@@ -82,7 +96,10 @@ class FoldedOp(nn.Module):
     def vector(self, x):
         """The pool op's [B, C] f32 result, relu(mean(x) @ w + b), without
         its spatial broadcast."""
-        pooled = x.float().mean((2, 3))
+        return self.vector_of_mean(per_image(torch.mean, x))
+
+    def vector_of_mean(self, pooled):
+        """The pool op's vector from the [B, C] f32 means of its input."""
         # an elementwise product and row sums, not a matrix product: each
         # image's vector then has the same bits at any batch size
         return torch.relu((pooled[:, None, :] * self.w).sum(-1) + self.b)
@@ -256,10 +273,7 @@ class FoldedMicroDecoder(nn.Module):
         uk, ac = use_kernels, align_corners
 
         def agg_pw(entry, mod):
-            if isinstance(entry, _LazyTap):
-                return pw_chain_chw(entry.x, [entry.adapt, mod.wb()],
-                                    use_kernels=uk)
-            return conv_chw(entry, *mod.wb(), k=1, use_kernels=uk)
+            return self._agg_pw(entry, mod, uk)
 
         pool: List = []
         for lazy, t, a in zip(self.lazy, taps, self.adapt):
@@ -284,7 +298,12 @@ class FoldedMicroDecoder(nn.Module):
             pool.append(self._cell(bi, y, uk))
         hw = (max(pool[i].shape[2] for i in self.collect),
               max(pool[i].shape[3] for i in self.collect))
-        srcs = [self._resize(pool[i], hw, ac, uk) for i in self.collect]
+        return self._head([self._resize(pool[i], hw, ac, uk)
+                           for i in self.collect], uk)
+
+    def _head(self, srcs, uk: bool):
+        """The classifier over the collected entries, without their
+        concatenation."""
         if len(srcs) == 1:
             return conv_chw(srcs[0], self.clf_w, self.clf_b, k=1, act="none",
                             use_kernels=uk)
@@ -293,6 +312,14 @@ class FoldedMicroDecoder(nn.Module):
             ws.append(self.clf_w[:, off:off + s.shape[1]])
             off += s.shape[1]
         return pw_multi_chw(srcs, ws, self.clf_b, act="none", use_kernels=uk)
+
+    def _agg_pw(self, entry, mod, uk: bool):
+        """An aggregate branch's 1x1 on a pool entry; a lazy tap's
+        pending adapt runs in the same kernel."""
+        if isinstance(entry, _LazyTap):
+            return pw_chain_chw(entry.x, [entry.adapt, mod.wb()],
+                                use_kernels=uk)
+        return conv_chw(entry, *mod.wb(), k=1, use_kernels=uk)
 
 
 class _Folded1x1(nn.Module):
@@ -313,3 +340,343 @@ def fold_decoder(dec: MicroDecoder, compute_dtype=torch.bfloat16
                  ) -> FoldedMicroDecoder:
     """A ``FoldedMicroDecoder`` of ``dec``'s f32 weights, on dec's device."""
     return FoldedMicroDecoder(dec, compute_dtype).eval()
+
+
+# ------------------------------------------------------- H-sharded mode
+#
+# Counterpart: segtpu/models/fast_decoder.py::build_fast_decoder(spatial=
+# ...). One process holds every shard: a value is the list of its shards'
+# tensors, ``decs[s]`` the folded decoder on shard s's device (shards of
+# one device share one). A block shards when ``_block_shards`` says so and
+# is computed whole, once per device, otherwise.
+
+def _block_shards(hw, fhw, n_sh: int, halo_req: int) -> bool:
+    """Whether a decoder block runs H-sharded: every shard's rows cover
+    the cell's largest op halo (a halo exchange reaches one neighbour)
+    and each input's rows divide evenly."""
+    return (hw[0] % n_sh == 0
+            and hw[0] // n_sh >= max(halo_req, 1)
+            and all(f[0] % n_sh == 0 for f in fhw))
+
+
+def decoder_shard_plan(genotype, input_hw, n_shards: int):
+    """The sharded decoder's per-block decisions from shapes alone: a
+    list of {block, hw, rows_per_shard, halo_req, sharded} and the share
+    of decoder and head pixels computed 1/n per shard (the same dict as
+    segtpu.models.fast_decoder.decoder_shard_plan)."""
+    cell_config, conns = genotype
+    ops = [cell_config[0]] + [o for nd in cell_config[1:]
+                              for o in (nd[2], nd[3])]
+    halo_req = 0
+    for o in ops:
+        name = OP_NAMES[o]
+        if name in _CONV_SPECS:
+            k, dil, _ = _CONV_SPECS[name]
+            halo_req = max(halo_req, dil * (k // 2))
+    h, w = input_hw
+    pool = [(h // 4, w // 4), (h // 8, w // 8), (h // 16, w // 16),
+            (h // 32, w // 32)]
+    rows = []
+    px_sh = px_total = 0
+    for bi, (i, j) in enumerate(conns):
+        fhw = [pool[i], pool[j]]
+        hw = (max(f[0] for f in fhw), max(f[1] for f in fhw))
+        sh = _block_shards(hw, fhw, n_shards, halo_req)
+        pool.append(hw)
+        npx = hw[0] * hw[1]
+        px_total += npx
+        px_sh += npx if sh else 0
+        rows.append({"block": bi + 1, "hw": list(hw),
+                     "rows_per_shard": hw[0] // n_shards
+                     if hw[0] % n_shards == 0 else None,
+                     "halo_req": halo_req, "sharded": sh})
+    # the head computes each shard's rows at the largest collected size
+    head_hw = (h // 4, w // 4)
+    px_total += head_hw[0] * head_hw[1]
+    px_sh += head_hw[0] * head_hw[1]
+    return {"blocks": rows, "head_hw": list(head_hw),
+            "sharded_px_fraction": round(px_sh / px_total, 4)}
+
+
+class _Entry:
+    """A pool entry of the sharded decoder: ``ts[s]`` is shard s's
+    tensor (or lazy tap), its own rows when ``local``, else the whole
+    map (one tensor per device, shared by that device's shards)."""
+
+    def __init__(self, ts, local: bool):
+        self.ts, self.local = list(ts), local
+
+    def full_hw(self, n: int):
+        shp = self.ts[0].shape
+        return (shp[2] * (n if self.local else 1), shp[3])
+
+
+class ShardedMicroDecoder:
+    """The folded micro decoder over H-sharded taps: ``decs[s]`` is the
+    ``FoldedMicroDecoder`` on shard s's device. ``__call__(taps)`` takes
+    the four taps as lists of the shards' rows and returns the shards'
+    rows of the logits [N, K, H/4n, W/4].
+
+    Every conv or sep kernel of a sharded block runs unmodified on the
+    shard's rows extended by the op's halo ``dil * (k // 2)`` (an ``acc``
+    with them, so the kernel's f32 add is kept) and the edge rows are
+    dropped; a fused pair extends both branches by the larger halo; each
+    node of the fused cell suffix is one ``cell_op_chw`` call extended
+    and cropped on its own, which rounds as the unsharded call's nodes
+    do. A sharded resize reads the shard's window through its band of
+    the interpolation matrix. All of that gives the unsharded bits. The
+    one exception is a global-average-pool branch: its mean is the sum
+    of the shards' f32 partial sums over the full count."""
+
+    def __init__(self, decs, *, align_corners: bool = True,
+                 use_kernels: bool = True):
+        self.decs, self.n = list(decs), len(decs)
+        self.ac, self.uk = align_corners, use_kernels
+        d0 = self.decs[0]
+        self.devices = [d.clf_b.device for d in self.decs]
+        ops = [d0.node0[0]] + [op for pair in d0.nodes[0] for op in pair] \
+            if len(d0.node0) else []
+        self.halo_req = max([op.halo for op in ops], default=0)
+
+    # ---- plumbing
+    def _each(self, local: bool, fn):
+        """``fn(s)`` for every shard; what is not local is computed once
+        per device (by its first shard)."""
+        if local:
+            return [fn(s) for s in range(self.n)]
+        return per_device(self.devices,
+                          lambda dev: fn(self.devices.index(dev)))
+
+    def _local(self, e: _Entry):
+        if e.local:
+            return e.ts
+        lr = e.ts[0].shape[2] // self.n
+        return [t[:, :, s * lr:(s + 1) * lr].contiguous()
+                for s, t in enumerate(e.ts)]
+
+    def _full(self, e: _Entry):
+        return gather_h(e.ts) if e.local else e.ts
+
+    # ---- resize
+    def _resize_any(self, e: _Entry, hw, shard: bool, acc=None,
+                    acc_chain=None):
+        """Resize a pool entry (whole or local) to the whole size ``hw``
+        (+ ``acc`` or ``acc_chain``, added in the kernel as the unsharded
+        decoder adds them). ``shard``: returns the shards' rows, and
+        ``acc`` holds rows; else the whole map, and ``acc`` holds whole
+        maps. ``acc_chain`` = (the shards' rows of the raw tap, the
+        stages per shard)."""
+        n, ac, uk = self.n, self.ac, self.uk
+        hw = (int(hw[0]), int(hw[1]))
+        fh, fw = e.full_hw(n)
+
+        def one(s, x, accs, raws, band=None):
+            a = None if accs is None else accs[s]
+            ch = None if acc_chain is None else (raws[s], acc_chain[1][s])
+            if (fh, fw) == hw:      # nothing to resize: the adds alone
+                return FoldedMicroDecoder._resize(
+                    x, tuple(x.shape[2:]), ac, uk, acc=a, acc_chain=ch)
+            return resize_chw(x, hw, a, ch, align_corners=ac, use_kernels=uk,
+                              shard=band)
+
+        def whole(accs):
+            full = self._full(e)
+            raws = None if acc_chain is None else gather_h(acc_chain[0])
+            return self._each(False, lambda s: one(s, full[s], accs, raws))
+
+        raws = None if acc_chain is None else acc_chain[0]
+        if not shard:
+            return _Entry(whole(acc), False)
+        if (fh, fw) == hw:
+            loc = self._local(e)
+            return _Entry([one(s, loc[s], acc, raws) for s in range(n)], True)
+        if fh % n == 0:
+            _, hu, hd = shard_interp_bands(fh, hw[0], n, ac)
+            if max(hu, hd) <= fh // n:     # the halo reaches one neighbour
+                ext = halo_exchange(self._local(e), hu, hd)
+                return _Entry([one(s, ext[s], acc, raws, (s, n, fh))
+                               for s in range(n)], True)
+        # else resize the whole map on each device and keep the shard's rows
+        full = whole(None if acc is None else gather_h(acc))
+        return _Entry(self._local(_Entry(full, False)), True)
+
+    # ---- cell ops on sharded rows
+    def _vector(self, sel, xs):
+        """A pool branch's [B, C] vector on every shard: the shards' f32
+        partial sums added in shard order over the full count."""
+        total = sum_shards([per_image(torch.sum, x) for x in xs])
+        count = xs[0].shape[2] * self.n * xs[0].shape[3]
+        return [sel(d).vector_of_mean(t / count)
+                for d, t in zip(self.decs, total)]
+
+    def _sh_op(self, sel, xs, acc=None, vec=None):
+        """One cell op on every shard's rows (``sel(dec)`` picks the op
+        of a shard's decoder)."""
+        op0, uk = sel(self.decs[0]), self.uk
+        if op0.kind in ("none", "skip"):
+            return [sel(d)(x, None if acc is None else acc[s])
+                    for s, (d, x) in enumerate(zip(self.decs, xs))]
+        if op0.kind == "gap":
+            out = []
+            for s, v in enumerate(self._vector(sel, xs)):
+                y = v.to(xs[s].dtype)[:, :, None, None].expand(
+                    -1, -1, *xs[s].shape[2:])
+                out.append(y.contiguous() if acc is None else y + acc[s])
+            return out
+        he = op0.halo
+        if op0.kind == "conv":
+            xe = halo_exchange(xs, he, he)
+            ae = None if acc is None else halo_exchange(acc, he, he)
+            return [crop_h(conv_chw(
+                xe[s], sel(d).w, sel(d).b, None if ae is None else ae[s],
+                None if vec is None else vec[s], k=op0.k, dilation=op0.dil,
+                use_kernels=uk), he, he) for s, d in enumerate(self.decs)]
+        xs = self._prefix(sel, xs)
+        xe = halo_exchange(xs, he, he)
+        ae = None if acc is None else halo_exchange(acc, he, he)
+        return [crop_h(sep_conv_chw(
+            xe[s], *sel(d).rep(op0.n_reps - 1), None if ae is None else ae[s],
+            None if vec is None else vec[s], k=op0.k, dilation=op0.dil,
+            use_kernels=uk), he, he) for s, d in enumerate(self.decs)]
+
+    def _prefix(self, sel, xs):
+        """Every kernel of a sep op but the last, each repeat extended
+        and cropped on its own."""
+        op0 = sel(self.decs[0])
+        if op0.kind == "sep":
+            for r in range(op0.n_reps - 1):
+                xe = halo_exchange(xs, op0.halo, op0.halo)
+                xs = [crop_h(sep_conv_chw(xe[s], *sel(d).rep(r), k=op0.k,
+                                          dilation=op0.dil,
+                                          use_kernels=self.uk),
+                             op0.halo, op0.halo)
+                      for s, d in enumerate(self.decs)]
+        return xs
+
+    def _node_pair(self, sela, xa, selb, xb):
+        """One cell node, opb(xb) + opa(xa), as ``_node_pair`` runs it."""
+        opa, opb = sela(self.decs[0]), selb(self.decs[0])
+        fa, fb = opa.fuse_spec(), opb.fuse_spec()
+        if fa is not None and fb is not None:
+            he = max(opa.halo, opb.halo)
+            x1 = halo_exchange(self._prefix(selb, xb), he, he)
+            x2 = halo_exchange(self._prefix(sela, xa), he, he)
+            return [crop_h(pair_op_chw(
+                x1[s], selb(d).fuse_spec()[1], x2[s], sela(d).fuse_spec()[1],
+                op1=fb[0], op2=fa[0], use_kernels=self.uk), he, he)
+                for s, d in enumerate(self.decs)]
+        if opa.kind == "gap" and fb is not None:
+            return self._sh_op(selb, xb, vec=self._vector(sela, xa))
+        if opb.kind == "gap" and fa is not None:
+            return self._sh_op(sela, xa, vec=self._vector(selb, xb))
+        return self._sh_op(selb, xb, acc=self._sh_op(sela, xa))
+
+    def _fused_node(self, sels, outs):
+        """One node of the fused cell suffix: ``sels`` is [(op selector,
+        source entry)] per branch. One ``cell_op_chw`` call per shard on
+        the sources extended by the node's largest halo, then cropped."""
+        ops = [sel(self.decs[0]) for sel, _ in sels]
+        he = max([op.halo for op in ops], default=0)
+        used = sorted({src for (_, src), op in zip(sels, ops)
+                       if op.kind not in ("gap", "none")}) or [0]
+        ext = {src: halo_exchange(outs[src], he, he) for src in used}
+        vecs = {i: self._vector(sel, outs[src])
+                for i, ((sel, src), op) in enumerate(zip(sels, ops))
+                if op.kind == "gap"}
+        res = []
+        for s, d in enumerate(self.decs):
+            desc = [{"kind": "vec", "vec": vecs[i][s]} if i in vecs
+                    else sel(d).branch(used.index(src) if src in used else 0)
+                    for i, (sel, src) in enumerate(sels)]
+            res.append(crop_h(cell_op_chw(
+                [ext[src][s] for src in used], [desc], [len(used)],
+                use_kernels=self.uk), he, he))
+        return res
+
+    def _cell(self, bi: int, ys):
+        """A sharded block's cell on the shards' rows, node for node as
+        ``FoldedMicroDecoder._cell`` runs it."""
+        d0 = self.decs[0]
+
+        def node0(d):
+            return d.node0[bi]
+
+        def branch(k, side):
+            return lambda d: d.nodes[bi][k][side]
+
+        wiring = list(d0.cell_config[1:])
+        plan = d0._cell_plan(bi)
+        start = len(wiring) + 1 if plan is None else plan[1]
+        outs = [ys]
+        if start >= 1:
+            outs.append(self._sh_op(node0, ys))
+        for k, (p1, p2, _, _) in enumerate(wiring[:max(start - 1, 0)]):
+            outs.append(self._node_pair(branch(k, 0), outs[p1],
+                                        branch(k, 1), outs[p2]))
+        if plan is not None:
+            if start == 0:
+                outs.append(self._fused_node([(node0, 0)], outs))
+            for k, (p1, p2, _, _) in enumerate(wiring):
+                if k + 1 >= max(start, 1):
+                    outs.append(self._fused_node(
+                        [(branch(k, 0), p1), (branch(k, 1), p2)], outs))
+        ents = [outs[c] for c in d0.cell_collect]
+        if len(ents) == 1:
+            return ents[0]
+        if plan is not None:     # the fused suffix sums in its kernel
+            return [cell_op_chw([e[s] for e in ents], [],
+                                list(range(len(ents))), use_kernels=self.uk)
+                    for s in range(self.n)]
+        acc = ents[0]
+        for e in ents[1:]:
+            acc = [a + t for a, t in zip(acc, e)]
+        return acc
+
+    # ---- the decoder
+    @torch.inference_mode()
+    def __call__(self, taps):
+        n, uk, decs = self.n, self.uk, self.decs
+        d0 = decs[0]
+        pool = []
+        for i, ts in enumerate(taps):
+            pool.append(_Entry(
+                [_LazyTap(t, d.adapt[i].wb()) if d0.lazy[i]
+                 else conv_chw(t, *d.adapt[i].wb(), k=1, use_kernels=uk)
+                 for d, t in zip(decs, ts)], True))
+        for bi, (i, j) in enumerate(d0.conns):
+            br = [(pool[i], "agg1"), (pool[j], "agg2")]
+            fhw = [e.full_hw(n) for e, _ in br]
+            hw = (max(f[0] for f in fhw), max(f[1] for f in fhw))
+            shard = _block_shards(hw, fhw, n, self.halo_req)
+            # resize the branch that needs it last, so that the other
+            # rides in as its acc (the order of the unsharded decoder)
+            if fhw[1] == hw and fhw[0] != hw:
+                br.reverse()
+                fhw.reverse()
+            (e1, m1), (e2, m2) = br
+
+            def agg(e, m):
+                return _Entry(self._each(e.local, lambda s: decs[s]._agg_pw(
+                    e.ts[s], getattr(decs[s], m)[bi], uk)), e.local)
+
+            if isinstance(e1.ts[0], _LazyTap) and fhw[0] == hw:
+                chain = ([t.x for t in e1.ts],
+                         [[t.adapt, getattr(d, m1)[bi].wb()]
+                          for d, t in zip(decs, e1.ts)])
+                y = self._resize_any(agg(e2, m2), hw, shard, acc_chain=chain)
+            else:
+                y1 = self._resize_any(agg(e1, m1), hw, shard)
+                y = self._resize_any(agg(e2, m2), hw, shard, acc=y1.ts)
+            if shard:
+                pool.append(_Entry(self._cell(bi, y.ts), True))
+            else:
+                pool.append(_Entry(self._each(False, lambda s: decs[s]._cell(
+                    bi, y.ts[s], uk)), False))
+        sizes = [pool[i].full_hw(n) for i in d0.collect]
+        hw = (max(f[0] for f in sizes), max(f[1] for f in sizes))
+        if hw[0] % n:
+            raise ValueError(f"the head's {hw[0]} rows do not divide into "
+                             f"{n} shards")
+        srcs = [self._resize_any(pool[i], hw, True).ts for i in d0.collect]
+        return [d._head([src[s] for src in srcs], uk)
+                for s, d in enumerate(decs)]

@@ -10,6 +10,13 @@ the 13 stride-1 blocks as ``inv_res_chw`` and the 4 stride-2 blocks as
 the tap rule of ``encoders.MobileNetV2``. Dense weights are rounded to
 the compute dtype once, after folding in f32; depthwise weights and
 biases stay f32 (the JAX path's numerics).
+
+``mbv2_chw_sharded`` is the H-sharded mode (counterpart:
+``mbv2_chw_apply(spatial_axis=...)``): every stage runs its unmodified
+kernel on the shard's rows extended by true neighbour rows and drops
+the output rows computed on the kernel's own zero padding
+(overlap-discard), so each tap is, bit for bit, the shard's rows of the
+unsharded tap.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from segtpu_torch.kernels.chw_ops import (conv_chw, fold_bn, inv_res_chw,
                                           inv_res_s2_chw)
 from segtpu_torch.models.encoders import (_MBV2_CFG, _TAP_STAGES,
                                           MobileNetV2, stem_s2d_kernel)
+from segtpu_torch.parallel.collectives import halo_exchange
 
 
 def _fold(conv_bn):
@@ -92,6 +100,50 @@ class FoldedMobileNetV2(nn.Module):
             if is_tap:
                 taps.append(y)
         return taps
+
+
+def crop_h(y, top: int, bottom: int = 0):
+    """y without its first ``top`` and last ``bottom`` rows, contiguous
+    (the kernels take contiguous tensors)."""
+    if not (top or bottom):
+        return y
+    return y[:, :, top:y.shape[2] - bottom].contiguous()
+
+
+def mbv2_chw_sharded(encs, x12s, use_kernels: bool = True):
+    """The folded encoder on an H-sharded frame. ``encs[s]`` is the
+    ``FoldedMobileNetV2`` on shard s's device (shards of one device share
+    one), ``x12s[s]`` the shard's rows [N, 12, H/2n, W/2] of the
+    space-to-depth planes. Returns the four taps, each a list of the
+    shards' rows.
+
+    The stem's k=2 taps reach one row up: one halo row above, output row
+    0 dropped. A stride-1 block's 3x3 reaches one row each way: one halo
+    row each side, both edge rows dropped. A stride-2 block reads rows
+    2i-1..2i+1: two halo rows above (the local rows stay even), the top
+    output row dropped. At the ends of the mesh there is no halo and no
+    row to drop: the kernel's own padding is the image's
+    (``halo_exchange(ends=False)``)."""
+    uk, last = use_kernels, len(encs) - 1
+
+    def stage(fn_of, ys, up: int, dn: int, drop_top: int, drop_bottom: int):
+        ext = halo_exchange(ys, up, dn, ends=False)
+        return [crop_h(fn_of(enc)(x, uk), drop_top if s > 0 else 0,
+                       drop_bottom if s < last else 0)
+                for s, (enc, x) in enumerate(zip(encs, ext))]
+
+    ys = stage(lambda enc: enc.stem, x12s, 1, 0, 1, 0)
+    taps = []
+    for bi, is_tap in enumerate(encs[0].tap_after):
+        def block(enc, bi=bi):
+            return enc.blocks[bi]
+        if encs[0].blocks[bi].stride == 2:
+            ys = stage(block, ys, 2, 0, 1, 0)
+        else:
+            ys = stage(block, ys, 1, 1, 1, 1)
+        if is_tap:
+            taps.append(ys)
+    return taps
 
 
 def fold_encoder(enc: MobileNetV2, compute_dtype=torch.bfloat16
