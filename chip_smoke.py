@@ -74,6 +74,19 @@ Phases, each a hard failure (non-zero exit) when it fails:
    DATA_LAUNCHES. Times with CUDA events: the sharded tail per shard and
    summed, one space call and one data call beside the unsharded call.
 
+9. experiments: the four ported TPU experiments (segtpu_torch.scripts:
+   exp_vpu_floor, exp_front_kernel, ab_normalize, exp_tail_flat), each
+   run once through its run() at its default sizes with the launch counts
+   reset just before and read just after (EXPERIMENT_KERNELS: each of its
+   kernels launched, no serving kernel of another script's). Then each
+   of their five kernels against its plain twin at the scripts' shapes:
+   fma_peak at every (n_fma, n_acc) of the peak cases (rel 1e-5: the
+   kernel fuses the multiply-add, the twin rounds twice), dw_tap_sum at a
+   tap case of each C in {48, 144, 32}, the two front variants on the
+   8x1024x2048 batch and the fused classifier tail on the b8 48-channel
+   256x512 features, bit-identical; each timed with its twin and, for
+   the tap loop and the tail, a PyTorch library yardstick.
+
 Prints the kernels JSON line and the card's name and power limit, then,
 last, {"ok": true, "device": {...}}. Writes chiprun_out/chip_smoke.json.
 """
@@ -818,6 +831,15 @@ G2_LAUNCHES = {"front": 1, "conv_chw": 5, "inv_res_chw": 13,
                "sep_conv_chw": 3, "pair_op_chw": 3, "cell_op_chw": 3,
                "resize_chw": 3, "upsample_argmax": 0,
                "upsample_argmax_flat": 1, "upsample_argmax_sharded": 0}
+# the experiments' kernels: no serving path launches them
+EXPERIMENT_KERNELS = {
+    "exp_vpu_floor": ("fma_peak", "dw_tap_sum"),
+    "exp_front_kernel": ("front_single_round",),
+    "ab_normalize": ("normalize_s2d_nhwc",),
+    "exp_tail_flat": ("clf_upsample_argmax",)}
+EXPERIMENT_ONLY = {n: 0 for ks in EXPERIMENT_KERNELS.values() for n in ks}
+PATH_LAUNCHES.update(EXPERIMENT_ONLY)
+G2_LAUNCHES.update(EXPERIMENT_ONLY)
 # one b8 1024x2048 call over N_SHARDS logical shards: all three decoder
 # blocks shard, so every kernel of the unsharded path runs once per shard,
 # the fused cell suffix as one cell_op_chw call per node (3 blocks x 3 nodes)
@@ -826,7 +848,8 @@ SPACE_LAUNCHES = {"front": 4, "conv_chw": 16, "inv_res_chw": 52,
                   "inv_res_s2_chw": 16, "pw_chain_chw": 4, "pw_multi_chw": 0,
                   "sep_conv_chw": 12, "pair_op_chw": 0, "cell_op_chw": 36,
                   "resize_chw": 12, "upsample_argmax": 0,
-                  "upsample_argmax_flat": 0, "upsample_argmax_sharded": 4}
+                  "upsample_argmax_flat": 0, "upsample_argmax_sharded": 4,
+                  **EXPERIMENT_ONLY}
 DATA_LAUNCHES = {n: N_SHARDS * v for n, v in PATH_LAUNCHES.items()}
 # arch0 without its pool branch: halos of 12 rows and no re-associated sum
 NO_POOL = [[2, [0, 1, 3, 9], [2, 0, 5, 2], [1, 3, 8, 0]],
@@ -846,6 +869,11 @@ def kernel_wrappers():
     out.update(resize_chw=resize_chw, upsample_argmax=upsample_argmax,
                upsample_argmax_flat=upsample_argmax_flat,
                upsample_argmax_sharded=upsample_argmax_sharded)
+    from segtpu_torch.kernels import front_ab, tail_flat, vpu_floor
+    out.update(fma_peak=vpu_floor.fma_peak, dw_tap_sum=vpu_floor.dw_tap_sum,
+               front_single_round=front_ab.front_single_round,
+               normalize_s2d_nhwc=front_ab.normalize_s2d_nhwc,
+               clf_upsample_argmax=tail_flat.clf_upsample_argmax)
     return out
 
 
@@ -1157,6 +1185,157 @@ def phase_sharded(torch, seg, ref, frames, masks, t):
     return launches, rate
 
 
+def _experiment_row(err, fn, plain, lib, nbytes, dot, f32, what):
+    """A kernel's row of ``work``: times of the kernel, its twin and the
+    library yardstick (None where there is none), each over a ~25 ms
+    window, all timed alike: in turns, kernel, twin, library, then back,
+    each arm's lower time kept."""
+    from segtpu_torch.scripts import cuda_ms as adaptive_ms, turns_ms
+    arms = {"ms": fn, "plain_ms": plain}
+    if lib is not None:
+        arms["library_ms"] = lib
+    r = dict(max_abs_err=err, library_ms=None, bytes=nbytes, dot=dot,
+             f32=f32, n=1)
+    r.update(turns_ms(arms, adaptive_ms))
+    print(f"[timing] {what}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"library {r['library_ms']!r} ms")
+    return r
+
+
+def phase_experiments(torch):
+    """Phase 9 (see the module doc). Returns the experiments' launch
+    counts, their kernels' rows of ``work`` and the scripts' results."""
+    import importlib
+    import torch.nn.functional as F
+    from segtpu_torch.kernels.front_ab import (
+        front_single_round, front_single_round_plain, normalize_s2d_nhwc,
+        normalize_s2d_nhwc_plain)
+    from segtpu_torch.kernels.tail_flat import (clf_upsample_argmax,
+                                                clf_upsample_argmax_plain)
+    from segtpu_torch.kernels.vpu_floor import (dw_tap_sum, dw_tap_sum_plain,
+                                                fma_peak, fma_peak_plain,
+                                                taps)
+    from segtpu_torch.scripts import bits_equal, exp_tail_flat, exp_vpu_floor
+
+    # each script's run, the counts read around it alone
+    launches, results = {}, {}
+    for script, names in EXPERIMENT_KERNELS.items():
+        mod = importlib.import_module(f"segtpu_torch.scripts.{script}")
+        reset_counts()
+        t0 = time.perf_counter()
+        results[script] = mod.run()
+        counts = read_counts()
+        print(f"[experiments] {script}: {time.perf_counter() - t0:.1f} s, "
+              f"launches { {n: counts[n] for n in names} }")
+        check(all(counts[n] > 0 for n in names),
+              f"{script} did not launch each of {names}: {counts}")
+        stray = [n for n in EXPERIMENT_ONLY if n not in names and counts[n]]
+        check(not stray, f"{script} launched another script's kernel: {stray}")
+        launches.update({n: counts[n] for n in names})
+
+    work = {}
+    # fma_peak: every peak case, rel 1e-5; the row at the script's
+    # default chains, (n_fma, n_acc) = (256, 4)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(exp_vpu_floor.PEAK_SHAPE, generator=g, device="cuda")
+    errs = {}
+    for n_fma, n_acc in exp_vpu_floor.PEAK_CASES:
+        got = fma_peak(x, n_fma=n_fma, n_acc=n_acc)
+        want = fma_peak_plain(x, n_fma=n_fma, n_acc=n_acc)
+        torch.cuda.synchronize()
+        rel = exp_vpu_floor.rel_err(got, want)
+        errs[n_fma, n_acc] = (got - want).abs().max().item()
+        print(f"[experiments] fma_peak n_fma={n_fma} n_acc={n_acc}: max rel "
+              f"err {rel!r}, max abs err {errs[n_fma, n_acc]!r}")
+        check(rel <= exp_vpu_floor.PEAK_RTOL,
+              f"fma_peak {n_fma}/{n_acc}: relative error {rel} > 1e-5")
+    work["fma_peak"] = _experiment_row(
+        errs[256, 4], lambda: fma_peak(x, n_fma=256, n_acc=4),
+        lambda: fma_peak_plain(x, n_fma=256, n_acc=4), None,
+        2 * x.numel() * 4, 0, exp_vpu_floor.peak_flops(x.numel(), 256, 4),
+        f"fma_peak {tuple(x.shape)} n_fma=256 n_acc=4")
+    del x, got, want
+
+    # dw_tap_sum: every tap case bit for bit; the row at the last one
+    # checked, the first case, (C, k, dil) = (48, 3, 1)
+    for case in exp_vpu_floor.TAP_CASES[::-1]:
+        c, k, dil, w, rows = case
+        x, wt = exp_vpu_floor.tap_inputs(c, k, dil, w, rows,
+                                         exp_vpu_floor.TAP_GRID, "cuda", seed=12)
+        kw = dict(k=k, dilation=dil, w=w)
+        got = dw_tap_sum(x, wt, **kw)
+        want = dw_tap_sum_plain(x, wt, **kw)
+        torch.cuda.synchronize()
+        print(f"[experiments] dw_tap_sum C={c} k={k} dil={dil} rows={rows} "
+              f"w={w}: bit-identical={bits_equal(got, want)}")
+        check(bits_equal(got, want), f"dw_tap_sum {case} differs from its twin")
+    n_taps = len(taps(k, dil, 10**6, w))
+    n_dx = len({t[2] for t in taps(k, dil, 10**6, w)})
+    half = dil * (k // 2)
+    xf = x.float().reshape(x.shape[0], c, -1, w)
+    wconv = wt.reshape(k, k, c).permute(2, 0, 1)[:, None].contiguous()
+
+    def tap_lib():
+        return F.conv2d(xf, wconv, padding=(0, half), dilation=dil, groups=c)
+
+    lib = tap_lib()[:, :, 1:1 + rows].reshape(got.shape)
+    lib_err = (lib - want).abs().max().item()
+    check(lib_err <= 1e-4 * want.abs().max().item(),
+          f"the tap loop's grouped-conv yardstick differs by {lib_err}")
+    work["dw_tap_sum"] = _experiment_row(
+        0.0, lambda: dw_tap_sum(x, wt, **kw),
+        lambda: dw_tap_sum_plain(x, wt, **kw), tap_lib,
+        x.numel() * 2 + wt.numel() * 4 + got.numel() * 4, 0,
+        got.numel() * (2 * n_taps - 1 + 2 * (n_dx - 1)),
+        f"dw_tap_sum {tuple(x.shape)} C={c} k={k} dil={dil}")
+    del x, xf, got, want, lib
+
+    # the two front variants on the 8x1024x2048 batch, bit for bit
+    g = torch.Generator(device="cuda").manual_seed(13)
+    img = torch.randint(0, 256, (N, H, W, 3), generator=g, device="cuda",
+                        dtype=torch.uint8)
+    front_bytes = N * H * W * 3 + N * 12 * (H // 2) * (W // 2) * 2
+    for name, fn, plain in (
+            ("front_single_round", front_single_round, front_single_round_plain),
+            ("normalize_s2d_nhwc", normalize_s2d_nhwc, normalize_s2d_nhwc_plain)):
+        got = fn(img)
+        torch.cuda.synchronize()
+        same = bits_equal(got, plain(img))
+        print(f"[experiments] {name} {tuple(got.shape)}: bit-identical={same}")
+        check(same, f"{name} differs from its plain twin")
+        work[name] = _experiment_row(
+            0.0, lambda: fn(img), lambda: plain(img), None, front_bytes,
+            0, 2 * N * 12 * (H // 2) * (W // 2), f"{name} {tuple(img.shape)}")
+    del img, got
+
+    # the classifier-fused tail at the script's sizes, bit for bit
+    b, cin, h, w, k = 8, 48, H // 4, W // 4, K
+    feat, wclf, bclf = exp_tail_flat.tail_inputs(b, cin, h, w, k, "cuda")
+    got = clf_upsample_argmax(feat, wclf, bclf, (H, W))
+    torch.cuda.synchronize()
+    same = bits_equal(got, clf_upsample_argmax_plain(feat, wclf, bclf, (H, W)))
+    check(got.shape == (b, H, W) and int(got.max()) < k,
+          f"fused tail shape {tuple(got.shape)} or class out of range")
+    w4, b16 = wclf[:, :, None, None], bclf.to(torch.bfloat16)
+
+    def tail_lib():
+        return F.interpolate(F.conv2d(feat, w4, b16).float(), size=(H, W),
+                             mode="bilinear", align_corners=True).argmax(1)
+
+    agree = (tail_lib() == got).float().mean().item()
+    print(f"[experiments] clf_upsample_argmax {tuple(feat.shape)} -> "
+          f"{tuple(got.shape)}: bit-identical={same}, mask agreement with "
+          f"the library yardstick {agree!r}")
+    check(same, "clf_upsample_argmax differs from its plain twin")
+    work["clf_upsample_argmax"] = _experiment_row(
+        0.0, lambda: clf_upsample_argmax(feat, wclf, bclf, (H, W)),
+        lambda: clf_upsample_argmax_plain(feat, wclf, bclf, (H, W)), tail_lib,
+        feat.numel() * 2 + wclf.numel() * 2 + bclf.numel() * 4 + b * H * W,
+        2 * b * k * cin * h * w, b * k * h * w + b * k * H * (3 * w + 4 * W),
+        f"clf_upsample_argmax {tuple(feat.shape)}")
+    return launches, work, results
+
+
 def conv_work(x_shape, cout: int, k: int, depthwise: bool, elt: int):
     """(bytes, dot flops, f32 flops) a conv_chw call must move and do:
     x read once, the weight and bias read once, the output written
@@ -1229,8 +1408,15 @@ KERNEL_ROWS = {
                              "segtpu/kernels/upsample_argmax.py:413"),
     "upsample_argmax_sharded": ("upsample_argmax.cu",
                                 "segtpu/kernels/upsample_argmax.py:276"),
+    "fma_peak": ("vpu_floor.cu", "scripts/exp_vpu_floor.py:56"),
+    # _tap_kernel, and _tap_kernel_roll (:126), the same function
+    "dw_tap_sum": ("vpu_floor.cu", "scripts/exp_vpu_floor.py:87"),
+    "front_single_round": ("front_ab.cu", "scripts/exp_front_kernel.py:38"),
+    "normalize_s2d_nhwc": ("front_ab.cu", "scripts/ab_normalize.py:58"),
+    "clf_upsample_argmax": ("tail_flat.cu", "scripts/exp_tail_flat.py:38"),
 }
 SHARDED_ONLY = ("upsample_argmax_sharded",)
+SCRIPT_OF = {n: s for s, ns in EXPERIMENT_KERNELS.items() for n in ns}
 
 
 def main() -> None:
@@ -1256,12 +1442,15 @@ def main() -> None:
     work["upsample_argmax_sharded"] = sharded_tail(torch, logits)
     space_launches, space_rate = phase_sharded(torch, seg, ref, frames, masks, t)
     launches.update({n: space_launches[n] for n in SHARDED_ONLY})
+    exp_launches, exp_work, experiments = phase_experiments(torch)
+    launches.update(exp_launches)
+    work.update(exp_work)
     for name, r in work.items():
         for key in ("ms", "plain_ms", "library_ms"):
             t[f"{name}_{key}_path_sum"] = r[key]
         print(f"[timing] {name} over its {r['n']} measured launches: "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']:.4f} ms")
+              f"library {r['library_ms']!r} ms")
     b = bounds(work)
     work["front"] = dict(max_abs_err=front_err, ms=t["front"],
                          plain_ms=t["front_plain"], library_ms=None)
@@ -1276,7 +1465,8 @@ def main() -> None:
             "replaces": replaces, "launches": launches[name],
             "path": "G2 b8 512x512" if name in G2_ONLY else
             f"space n={N_SHARDS} b8 1024x2048" if name in SHARDED_ONLY else
-            "main b8 1024x2048",
+            f"segtpu_torch.scripts.{SCRIPT_OF[name]}" if name in SCRIPT_OF
+            else "main b8 1024x2048",
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b[name][0],
             "bound_by": b[name][1], "library_ms": r["library_ms"]})
@@ -1291,7 +1481,8 @@ def main() -> None:
                        "n_shards": N_SHARDS, "space_launches": space_launches,
                        "space_mask_agreement": space_rate,
                        "tail_per_shard_ms":
-                           work["upsample_argmax_sharded"]["per_shard_ms"]}},
+                           work["upsample_argmax_sharded"]["per_shard_ms"]},
+                   "experiments": experiments},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -28,7 +28,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 KERNEL_SOURCES = ("front", "upsample_argmax", "conv_chw", "inv_res",
-                  "pointwise", "cell", "resize")
+                  "pointwise", "cell", "resize",
+                  # the experiments' kernels (segtpu_torch.scripts)
+                  "vpu_floor", "front_ab", "tail_flat")
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

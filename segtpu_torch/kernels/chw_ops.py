@@ -76,12 +76,18 @@ def _check_x(x, what: str):
         raise ValueError(f"{what} computes in bf16 or f32, not {x.dtype}")
 
 
-def _use_plain(x, use_kernels: bool, what: str) -> bool:
+def _on_cpu(x, what: str) -> bool:
+    """True for a CPU tensor (run the plain version), False for a CUDA
+    one (launch the kernel); any other device raises."""
     if x.device.type == "cpu":
         return True
     if x.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
-    return not use_kernels
+    return False
+
+
+def _use_plain(x, use_kernels: bool, what: str) -> bool:
+    return _on_cpu(x, what) or not use_kernels
 
 
 def _launch(fn, t, *args) -> int:
