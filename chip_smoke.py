@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # needs one CUDA card (built for sm_90a)
     python3 chip_smoke.py --profile  # also print a torch.profiler breakdown
+    python3 chip_smoke.py --control 7  # a control: see phase_control
 
 Phases, each a hard failure (non-zero exit) when it fails:
 
@@ -29,29 +30,38 @@ Phases, each a hard failure (non-zero exit) when it fails:
    the activations and residual, since no one call computes a block).
 5. decoder: the folded arch0 decoder on the kernels' taps of seeded b8
    1024x2048 frames, every kernel call recorded and replayed against its
-   plain twin (bf16 as in phase 4), timed with it and with the same
-   function as PyTorch library calls (cuDNN convolutions,
-   F.interpolate); likewise on genotype G2's b8 512x512 path for the
-   kernels arch0 does not reach (pair_op_chw, pw_multi_chw) and the
-   W-first tail on its logits. The bf16 taps and logits are held against
-   the unfolded model run in f32 through cuDNN (worst error <= 3 % of the
-   largest tap value, <= 5 % of the largest logit). Then every decoder
-   call in f32 at small shapes against its twin (1e-4) and its library
-   version (1e-4 of the largest value), and the decoder kernels' other
-   forms at odd sizes.
+   plain twin (bf16 as in phase 4; a cell_op_chw call node by node, each
+   node against the twin's node on the same entries, and the whole call
+   at >= 99 % bit-identical and a worst error <= 2e-2 of max(|ref|, 1):
+   the tensor-core nodes sum in another f32 order than the twins and a
+   rounding apart in one node moves the next node's sums), timed with it and with the same
+   function as PyTorch library calls (cuDNN convolutions, F.interpolate;
+   kernel and library in turns, each over a ~25 ms window); likewise on
+   genotype G2's b8 512x512 path for the kernels arch0 does not reach
+   (pair_op_chw, pw_multi_chw) and the W-first tail on its logits. The
+   bf16 taps and logits are held against the unfolded model run in f32
+   through cuDNN (worst error <= 3 % of the largest tap value, <= 5 % of
+   the largest logit), and the kernels' masks agree with that run's at
+   least as well as the plain twins' decoder's do, less 0.1 %. Then every
+   decoder call in f32 at small shapes against its twin (1e-4) and its
+   library version (1e-4 of the largest value), and the decoder kernels'
+   other forms at odd sizes.
 6. slice: Segmenter for arch0, 19 classes, seeded weights with BatchNorm
    perturbed. predict_batch on 8 seeded 1024x2048 frames (the main
    path, launch counts reset just before and read just after, each
    kernel's count checked: PATH_LAUNCHES) and predict on one 1000x1500
    frame (the pad path, likewise) and on one 999x1501 frame (odd: no
    front kernel, the padded frame packed by space-to-depth on the
-   device): masks agree >= 99.9 % with the same
-   Segmenter run with use_kernels=False on the card; f32 masks on a
-   small frame agree >= 99.9 % with the CPU run; predict_stream gives
-   predict's masks in order; logits are finite. Then G2's path,
-   predict_batch on 8 frames of 512x512 (G2_LAUNCHES, masks >= 99.9 %
-   equal to use_kernels=False): the launches of pair_op_chw,
-   pw_multi_chw and upsample_argmax_flat are read there.
+   device): masks against the same Segmenter run with use_kernels=False
+   on the card: >= 99.6 % of pixels equal (arch0's chained tensor-core
+   nodes; measured 99.66-99.74 %), and every pixel that differs a
+   near-tie of the plain run's logits (top-2 within 2e-2 of
+   max(|top1|, 1));
+   f32 masks on a small frame agree >= 99.9 % with the CPU run;
+   predict_stream gives predict's masks in order; logits are finite.
+   Then G2's path, predict_batch on 8 frames of 512x512 (G2_LAUNCHES,
+   masks >= 99.9 % equal, every pixel that differs a near-tie): the launches of pair_op_chw, pw_multi_chw and
+   upsample_argmax_flat are read there.
 7. timing with CUDA events: each kernel, its plain version and one
    PyTorch library call computing the same function where there is
    one, and predict_batch at b8 from a device-resident batch.
@@ -68,11 +78,14 @@ Phases, each a hard failure (non-zero exit) when it fails:
    (quarter-height windows with their halos, resize_chw's row-window
    form) is recorded and replayed against its plain twin as in phase 5,
    and the whole sharded call is run again on the plain twins
-   (use_kernels=False): logits and masks bit-equal to the kernels'. arch2 and a pool-free arch0 (whose first decoder block
-   computes whole at n = 4) at 2x512x1024 (arch2 also at n = 2): masks
-   bit-equal. mode="data", 4 parts of the b8 batch: masks bit-equal,
-   DATA_LAUNCHES. Times with CUDA events: the sharded tail per shard and
-   summed, one space call and one data call beside the unsharded call.
+   (use_kernels=False): each shard's logits within 2 % of the largest of
+   the twins' (bit-identical share and worst error printed), masks held
+   by the slice rule. arch2 and a pool-free arch0 (whose first decoder
+   block computes whole at n = 4) at 2x512x1024 (arch2 also at n = 2):
+   masks bit-equal to the unsharded engine's. mode="data", 4 parts of the
+   b8 batch: masks bit-equal, DATA_LAUNCHES. Times with CUDA events: the
+   sharded tail per shard and summed, one space call and one data call
+   beside the unsharded call.
 
 9. experiments: the four ported TPU experiments (segtpu_torch.scripts:
    exp_vpu_floor, exp_front_kernel, ab_normalize, exp_tail_flat), each
@@ -89,10 +102,17 @@ Phases, each a hard failure (non-zero exit) when it fails:
 
 Prints the kernels JSON line and the card's name and power limit, then,
 last, {"ok": true, "device": {...}}. Writes chiprun_out/chip_smoke.json.
+
+--control BITS runs a control instead of the phases: the bf16 node and
+1x1 kernels' outputs rounded once more, to BITS significant bits, and
+the checks that hold those kernels at a tolerance (phase 5's calls and
+f32 reference, phase 6's arch0 and G2 masks, phase 8's shard logits) run
+on it. It exits 0 when every one of them fails.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -242,6 +262,54 @@ def _compare(torch, got, want, what):
         print(f"[check] {what}: f32 max_abs_err={abs_err!r}")
         check(ok, f"{what}: f32 kernel differs from plain beyond 1e-4")
     return abs_err
+
+
+def _bits_rate(torch, got, want) -> float:
+    return (got.view(torch.int16) == want.view(torch.int16)).float().mean().item()
+
+
+# a bf16 cell_op_chw call's worst error against its twin's whole call, as
+# a share of max(|ref|, 1): two bf16 roundings near 1 (each node is held
+# to 1e-2 on its own; measured worst 0.0127 on an H100)
+CELL_CALL_TOL = 2e-2
+
+
+def check_call(torch, name, fn, a, what):
+    """A recorded decoder call's kernel output against its plain twin's on
+    the same inputs (``_compare``); returns (kernel output, worst abs
+    error). A bf16 ``cell_op_chw`` call launches one node kernel per node,
+    each node reading the ones before: its nodes are held one by one, each
+    against the twin's node on the same entries (the kernel's earlier
+    nodes), then the collect sum; the whole call is held to the twin's
+    whole call at >= 99 % bit-identical and a worst error <= CELL_CALL_TOL
+    of max(|ref|, 1) (two chained roundings: a node one rounding apart
+    moves the next node's sums)."""
+    got = replay(fn, a, True)
+    what = f"{what} {tuple(got.shape)}"
+    if name != "cell_op_chw" or got.dtype != torch.bfloat16:
+        return got, _compare(torch, got, replay(fn, a, False), what)
+    from segtpu_torch.kernels.chw_ops import cell_op_chw
+    entries, worst = list(a["srcs"]), 0.0
+    for i, node in enumerate(a["nodes_desc"]):
+        j = len(entries)
+        step = cell_op_chw(entries, [node], [j])
+        worst = max(worst, _compare(torch, step, cell_op_chw(
+            entries, [node], [j], use_kernels=False), f"{what} node {i}"))
+        entries.append(step)
+    if len(a["collect"]) > 1:
+        worst = max(worst, _compare(
+            torch, cell_op_chw(entries, [], a["collect"]),
+            cell_op_chw(entries, [], a["collect"], use_kernels=False),
+            f"{what} collect"))
+    want = replay(fn, a, False)
+    rate = _bits_rate(torch, got, want)
+    rel = ((got.float() - want.float()).abs()
+           / want.float().abs().clamp_min(1.0)).max().item()
+    print(f"[check] {what} whole call: bit-identical={rate!r} worst={rel!r}")
+    check(rate >= 0.99 and rel <= CELL_CALL_TOL,
+          f"{what}: whole call bit-identical {rate} < 99 % or error {rel} > "
+          f"{CELL_CALL_TOL}")
+    return got, worst
 
 
 def encoder_stages(enc):
@@ -609,8 +677,8 @@ def _lib_compare(torch, got, ref, what, tol):
 
 
 def decoder_calls(torch, genotype, hw, dtype, batch):
-    """(model, folded encoder and decoder, front output, taps, logits,
-    recorded decoder calls) for seeded frames through the kernels."""
+    """(model, folded decoder, frames, taps, logits, recorded decoder
+    calls) for seeded frames through the kernels."""
     from segtpu_torch.kernels.front import normalize_s2d_front
     from segtpu_torch.models.fast_decoder import fold_decoder
     from segtpu_torch.models.fast_encoder import fold_encoder
@@ -624,7 +692,7 @@ def decoder_calls(torch, genotype, hw, dtype, batch):
     with torch.inference_mode():
         taps = enc(x12)
     logits, calls = record_decoder(torch, dec, taps)
-    return model, img, taps, logits, calls
+    return model, dec, img, taps, logits, calls
 
 
 def phase_decoder(torch, res):
@@ -635,10 +703,11 @@ def phase_decoder(torch, res):
         res.setdefault(n, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                                library_ms=0.0, bytes=0, dot=0, f32=0, n=0))
     from segtpu_torch.models import ARCHS
+    from segtpu_torch.scripts import cuda_ms as adaptive_ms, turns_ms
     stage_ms = []
     paths = (("main", ARCHS["arch0"], (H, W)), ("G2", G2, (H2, W2)))
     for path, genotype, hw in paths:
-        model, img, taps, logits, calls = decoder_calls(
+        model, dec, img, taps, logits, calls = decoder_calls(
             torch, genotype, hw, torch.bfloat16, N)
         print(f"[decoder] {path} {N}x{hw[0]}x{hw[1]}: calls "
               f"{[c[0] for c in calls]}")
@@ -647,16 +716,17 @@ def phase_decoder(torch, res):
                 # the main path's kernels are measured on it, the rest on G2
                 if path == "G2" and name not in G2_ONLY:
                     continue
-                got = replay(fn, a, True)
-                want = replay(fn, a, False)
-                torch.cuda.synchronize()
+                got, err = check_call(torch, name, fn, a,
+                                      f"{path} call {i:2d} {name}")
                 shape = tuple(got.shape)
                 r = res[name]
-                r["max_abs_err"] = max(r["max_abs_err"], _compare(
-                    torch, got, want, f"{path} call {i:2d} {name} {shape}"))
-                ms = cuda_ms(lambda: replay(fn, a, True), 5)
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                # kernel and library in turns, each over a ~25 ms window
+                t = turns_ms({"ms": lambda: replay(fn, a, True),
+                              "lib": lambda: library_call(torch, name, a)},
+                             adaptive_ms)
+                ms, lib_ms = t["ms"], t["lib"]
                 plain_ms = cuda_ms(lambda: replay(fn, a, False), 1, warmup=1)
-                lib_ms = cuda_ms(lambda: library_call(torch, name, a), 5)
                 print(f"[timing] {path} call {i:2d} {name} {shape}: "
                       f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
                       f"{lib_ms:.4f} ms")
@@ -668,7 +738,7 @@ def phase_decoder(torch, res):
                                ("dot", dot), ("f32", f32), ("n", 1)):
                     r[key] += v
         if path == "main":
-            check_library_reference(torch, model, img, taps, logits)
+            check_library_reference(torch, model, dec, img, taps, logits)
         else:
             flat_tail(torch, logits, res["upsample_argmax_flat"], stage_ms)
     check(res["pw_multi_chw"]["n"] > 0 and res["pair_op_chw"]["n"] > 0,
@@ -719,7 +789,9 @@ def phase_decoder_forms(torch):
     (tiles cut by the image edge), f32 and bf16, each against its plain
     twin: a cell whose collect sums three entries (the collect kernel),
     skip, none and vector-only nodes, a sep conv with acc and vec_acc, a
-    pair of two dense convs, a three-stage chain, three sources."""
+    pair of two dense convs, a three-stage chain, three sources; and
+    widths the served paths do not reach (Cout over 64, Cin not a
+    multiple of 16, a k = 1 sep, a chain 80 wide in its middle)."""
     from segtpu_torch.kernels.chw_ops import (cell_op_chw, pair_op_chw,
                                               pw_chain_chw, pw_multi_chw,
                                               sep_conv_chw)
@@ -744,6 +816,16 @@ def phase_decoder_forms(torch):
     stages = [(rnd(24, c, 1, 1, scale=0.2), rnd(24, scale=0.1)),
               (rnd(20, 24, 1, 1, scale=0.2), rnd(20, scale=0.1)),
               (rnd(c, 20, 1, 1, scale=0.2), rnd(c, scale=0.1))]
+    x40, x24 = rnd(2, 40, *hw), rnd(2, 24, *hw)
+    wide = {"sep": (rnd(40, 1, 3, 3, scale=0.2), rnd(40, scale=0.1),
+                    rnd(96, 40, 1, 1, scale=0.2), rnd(96, scale=0.1)),
+            "conv": (rnd(96, 40, 5, 5, scale=0.05), rnd(96, scale=0.1))}
+    k1 = (rnd(24, 1, 1, 1, scale=0.5), rnd(24, scale=0.1),
+          rnd(24, 24, 1, 1, scale=0.2), rnd(24, scale=0.1))
+    chain80 = [(rnd(80, 40, 1, 1, scale=0.2), rnd(80, scale=0.1)),
+               (rnd(24, 80, 1, 1, scale=0.2), rnd(24, scale=0.1))]
+    w19, b19 = rnd(19, 64, 1, 1, scale=0.2), rnd(19, scale=0.1)
+    vec24 = rnd(2, 24)
     for dt in (torch.float32, torch.bfloat16):
         x, y = rnd(2, c, *hw).to(dt), rnd(2, c, *hw).to(dt)
         small = rnd(2, c, 19, 35).to(dt)
@@ -765,18 +847,36 @@ def phase_decoder_forms(torch):
             "resize chain": lambda uk: resize_chw(
                 small, hw, acc_chain=(x, stages), align_corners=False,
                 use_kernels=uk),
+            # widths the served paths do not reach: Cout 96 (two launches
+            # of 64 and 32 channels), Cin 40 and 24 (K padded to 16), a
+            # k = 1 sep, a chain whose middle stage is 80 wide
+            "pair sep conv wide": lambda uk: pair_op_chw(
+                x40.to(dt), wide["sep"], x40.to(dt), wide["conv"],
+                op1=("sep", 3, 3), op2=("conv", 5, 1), use_kernels=uk),
+            "sep k1 vec": lambda uk: sep_conv_chw(
+                x24.to(dt), *k1, None, vec24, k=1, use_kernels=uk),
+            "chain 40-80-24": lambda uk: pw_chain_chw(
+                x40.to(dt), chain80, acts=["relu6", "none"], use_kernels=uk),
+            "multi 24+40": lambda uk: pw_multi_chw(
+                [x24.to(dt), x40.to(dt)], [w19[:, :24], w19[:, 24:]], b19,
+                use_kernels=uk),
         }
         for what, fn in cases.items():
             _compare(torch, fn(True), fn(False), f"{what} {dt}")
 
 
-def check_library_reference(torch, model, img, taps, logits):
+def check_library_reference(torch, model, dec, img, taps, logits):
     """The bf16 kernels' taps and logits on the b8 frames against the
     unfolded model run in f32 through cuDNN (no TF32), an implementation
     independent of the kernels and their twins: worst error <= 3 % of the
-    largest tap value and <= 5 % of the largest logit."""
+    largest tap value and <= 5 % of the largest logit. Then the masks of
+    the kernels' logits and of the plain twins' decoder on the same taps
+    against the f32 run's: the kernels' agree with it at least as well as
+    the twins' do, less 0.1 %."""
     from segtpu_torch.kernels.front import normalize_s2d_front
+    from segtpu_torch.kernels.upsample_argmax import upsample_argmax
     m32 = model.to("cuda").float().eval()
+    hw = tuple(img.shape[1:3])
     with torch.inference_mode():
         x32 = normalize_s2d_front(img, out_dtype=torch.float32)
         taps32 = m32.encoder(x32, input_format="s2d12")
@@ -785,6 +885,15 @@ def check_library_reference(torch, model, img, taps, logits):
             _lib_compare(torch, t, t32, f"tap {i} {tuple(t.shape)}", 3e-2)
         _lib_compare(torch, logits, logits32, f"logits {tuple(logits.shape)}",
                      5e-2)
+        m_f32 = upsample_argmax(logits32, hw)
+        m_kernels = upsample_argmax(logits, hw)
+        m_twins = upsample_argmax(dec(taps, use_kernels=False), hw)
+        agree = [(m == m_f32).float().mean().item()
+                 for m in (m_kernels, m_twins)]
+    print(f"[decoder] masks vs the f32 reference: kernels {agree[0]!r}, "
+          f"plain twins {agree[1]!r}")
+    check(agree[0] >= agree[1] - 1e-3, f"the kernels' masks agree "
+          f"{agree[0]} with the f32 reference, the twins' {agree[1]}")
     model.to("cpu")
 
 
@@ -818,6 +927,50 @@ def make_model(torch, genotype=None):
                 m.mean.normal_(0.0, 0.1, generator=gen)
                 m.var.uniform_(0.5, 1.5, generator=gen)
     return model
+
+
+# a pixel is a near-tie where the plain twins' top-2 f32 logits are within
+# this share of max(|top1|, 1): a rounding can flip its class
+NEAR_TIE = 2e-2
+# least share of pixels whose class the kernels' masks share with the
+# plain twins': G2 as every mask check before the tensor-core decoder;
+# arch0 just under its measured 99.66-99.74 % (H100): its 3x3 dense
+# branches and dilated sep convs chain more roundings per pixel
+MASK_FLOOR = {"G2": 0.999, "arch0": 0.996}
+
+
+def tie_gaps(torch, ref, x):
+    """f32 [N, H, W] on the card: the gap between the top-2 logits of the
+    plain-twin engine ``ref`` on the uint8 frames ``x``, as a share of
+    max(|top1|, 1)."""
+    gaps = []
+    for i in range(x.shape[0]):          # one frame's logits at a time
+        lg = ref.predict(x[i:i + 1], return_logits=True)
+        top = lg.topk(2, dim=1).values
+        gaps.append((top[:, 0] - top[:, 1])
+                    / top[:, 0].abs().clamp_min(1.0))
+    return torch.cat(gaps)
+
+
+def masks_hold(torch, got, want, gaps, floor, what):
+    """The slice rule, masks of the kernels against the plain twins': at
+    least ``floor`` of the pixels equal, and every pixel that differs a
+    near-tie of the twins' logits (the kernels' dense and 1x1 sums run in
+    another f32 order than the twins', and a rounding apart at one node
+    moves its neighbours' sums; through the decoder's chained nodes that
+    flips classes where two logits nearly tie). Returns the agreement."""
+    got, want = (torch.as_tensor(m).to(gaps.device) for m in (got, want))
+    diff = got != want
+    rate = 1.0 - diff.float().mean().item()
+    off = int((diff & (gaps > NEAR_TIE)).sum().item())
+    widest = gaps[diff].max().item() if bool(diff.any()) else 0.0
+    print(f"[slice] {what}: agreement={rate!r} (floor {floor}) near-ties="
+          f"{(gaps <= NEAR_TIE).float().mean().item()!r} widest gap of a "
+          f"mismatch={widest!r} mismatches off near-ties={off}")
+    check(rate >= floor, f"{what}: masks agree on {rate} < {floor}")
+    check(off == 0, f"{what}: {off} pixels differ off near-ties (gap > "
+          f"{NEAR_TIE})")
+    return rate
 
 
 # launches over one b8 predict_batch of each path
@@ -909,11 +1062,12 @@ def phase_slice(torch):
     check(masks.shape == (N, H, W) and masks.dtype == np.uint8,
           f"mask shape {masks.shape} {masks.dtype}")
     check(int(masks.max()) < K, "mask class out of range")
-    want = ref.predict_batch(frames)
-    rate = float((masks == want).mean())
-    print(f"[slice] b8 masks vs use_kernels=False: agreement={rate!r} "
-          f"classes={np.bincount(masks.ravel(), minlength=K).tolist()}")
-    check(rate >= 0.999, f"slice agreement {rate} < 99.9 %")
+    print(f"[slice] b8 classes="
+          f"{np.bincount(masks.ravel(), minlength=K).tolist()}")
+    x = torch.from_numpy(frames).cuda()
+    gaps = tie_gaps(torch, ref, x)
+    rate = masks_hold(torch, masks, ref.predict_batch(frames), gaps,
+                      MASK_FLOOR["arch0"], "b8 masks vs use_kernels=False")
 
     # the pad path: 1000x1500 -> padded 1024x1504, cropped back
     one = rng.integers(0, 256, (1000, 1500, 3), dtype=np.uint8)
@@ -923,10 +1077,11 @@ def phase_slice(torch):
     check(all(pad_launches[n] > 0 for n, v in PATH_LAUNCHES.items() if v),
           f"pad path missed a kernel: {pad_launches}")
     check(m1.shape == (1000, 1500), f"pad-path mask shape {m1.shape}")
-    rate1 = float((m1 == ref.predict(one)).mean())
-    print(f"[slice] predict 1000x1500: launches={pad_launches} "
-          f"agreement={rate1!r}")
-    check(rate1 >= 0.999, f"pad-path agreement {rate1} < 99.9 %")
+    print(f"[slice] predict 1000x1500: launches={pad_launches}")
+    one_t = torch.from_numpy(one).cuda()[None]
+    masks_hold(torch, m1[None], ref.predict(one)[None],
+               tie_gaps(torch, ref, one_t), MASK_FLOOR["arch0"],
+               "pad path 1000x1500")
 
     # an odd frame: normalized on the card, zero-padded and packed by
     # space-to-depth into the same folded encoder (no front kernel)
@@ -937,11 +1092,12 @@ def phase_slice(torch):
     check(odd_launches["front"] == 0 and all(
         odd_launches[n] > 0 for n, v in PATH_LAUNCHES.items()
         if v and n != "front"), f"odd-frame path launches {odd_launches}")
-    rate3 = float((m3 == ref.predict(odd)).mean())
-    print(f"[slice] predict 999x1501: launches={odd_launches} "
-          f"agreement={rate3!r}")
-    check(m3.shape == (999, 1501) and rate3 >= 0.999,
-          f"odd-frame agreement {rate3} < 99.9 % or shape {m3.shape}")
+    print(f"[slice] predict 999x1501: launches={odd_launches}")
+    check(m3.shape == (999, 1501), f"odd-frame mask shape {m3.shape}")
+    odd_t = torch.from_numpy(odd).cuda()[None]
+    masks_hold(torch, m3[None], ref.predict(odd)[None],
+               tie_gaps(torch, ref, odd_t), MASK_FLOOR["arch0"],
+               "odd frame 999x1501")
 
     logits = seg.predict(frames[:1], return_logits=True)
     check(logits.shape == (1, K, H, W) and bool(np.isfinite(logits).all()),
@@ -968,9 +1124,9 @@ def phase_slice(torch):
     print(f"[slice] G2 predict_batch b8 {H2}x{W2}: launches={g2_launches}")
     check(g2_launches == G2_LAUNCHES,
           f"G2-path launches {g2_launches}, expected {G2_LAUNCHES}")
-    rate2 = float((m2 == ref2.predict_batch(frames2)).mean())
-    print(f"[slice] G2 b8 masks vs use_kernels=False: agreement={rate2!r}")
-    check(rate2 >= 0.999, f"G2 slice agreement {rate2} < 99.9 %")
+    masks_hold(torch, m2, ref2.predict_batch(frames2),
+               tie_gaps(torch, ref2, torch.from_numpy(frames2).cuda()),
+               MASK_FLOOR["G2"], "G2 b8 masks vs use_kernels=False")
     launches = {n: g2_launches[n] if n in G2_ONLY else v
                 for n, v in launches.items()}
     del seg2, ref2
@@ -981,7 +1137,7 @@ def phase_slice(torch):
         np.array_equal(s, seg.predict(f)) for s, f in zip(streamed, stream_in)),
         "predict_stream differs from predict")
     print("[slice] predict_stream: 3 frames in order")
-    return seg, ref, frames, launches, rate, masks
+    return seg, ref, frames, launches, rate, masks, gaps
 
 
 def phase_timing(torch, img, logits, seg, ref, frames):
@@ -1062,7 +1218,28 @@ def sharded_tail(torch, logits):
     return r
 
 
-def phase_sharded(torch, seg, ref, frames, masks, t):
+# a shard's bf16 logits against the plain twins' sharded call: worst error
+# as a share of the twins' largest logit (measured 1.16-1.20 % on an H100)
+SHARD_LOGITS_TOL = 2e-2
+
+
+def shard_logits_hold(torch, logits_k, want_logits):
+    """Each shard's logits of the kernels' sharded call within
+    SHARD_LOGITS_TOL of the largest of the plain twins' (bit-identical
+    share and worst error as a share of max(|ref|, 1) printed)."""
+    for s, (lk, lp) in enumerate(zip(logits_k, want_logits)):
+        g, w = lk.float(), lp.float()
+        rel = ((g - w).abs() / w.abs().clamp_min(1.0)).max().item()
+        of_max = ((g - w).abs().max() / w.abs().max()).item()
+        print(f"[sharded] space shard {s} logits {tuple(lk.shape)} vs the "
+              f"plain twins': bit-identical={_bits_rate(torch, lk, lp)!r} "
+              f"worst={rel!r} worst of the largest={of_max!r}")
+        check(of_max <= SHARD_LOGITS_TOL, f"shard {s}: logits differ from "
+              f"the plain twins' by {of_max} > {SHARD_LOGITS_TOL} of the "
+              f"largest")
+
+
+def phase_sharded(torch, seg, ref, frames, masks, gaps, t):
     """Phase 8 (see the module doc). Returns the sharded path's launch
     counts; adds its times to ``t``."""
     from segtpu_torch.engine import Segmenter, ShardedSegmenter
@@ -1110,10 +1287,8 @@ def phase_sharded(torch, seg, ref, frames, masks, t):
     windows = 0
     with torch.inference_mode():
         for i, (name, fn, a) in enumerate(calls):
-            got_c = replay(fn, a, True)
-            _compare(torch, got_c, replay(fn, a, False),
-                     f"space call {i:2d} {name} {tuple(got_c.shape)}"
-                     + (f" shard={a['shard']}" if a.get("shard") else ""))
+            check_call(torch, name, fn, a, f"space call {i:2d} {name}"
+                       + (f" shard={a['shard']}" if a.get("shard") else ""))
             seen[name] += 1
             windows += bool(a.get("shard"))
     stems = {"conv_chw": n}                 # the encoder's stem, per shard
@@ -1130,13 +1305,9 @@ def phase_sharded(torch, seg, ref, frames, masks, t):
     ref_sh = ShardedSegmenter(ref, devices)
     with torch.inference_mode():
         want_logits = ref_sh.decoder(ref_sh.infer_shards(x, return_taps=True))
-    for s, (lk, lp) in enumerate(zip(logits_k, want_logits)):
-        check(torch.equal(lk, lp), f"shard {s}: sharded logits differ from "
-              f"the plain twins' sharded logits")
-    check(torch.equal(got, ref_sh.predict(x)),
-          "space masks differ from the plain twins' space masks")
-    print(f"[sharded] space n={n} vs use_kernels=False: logits "
-          f"{tuple(logits_k[0].shape)} x {n} and masks bit-equal")
+    shard_logits_hold(torch, logits_k, want_logits)
+    masks_hold(torch, got, ref_sh.predict(x), gaps, MASK_FLOOR["arch0"],
+               f"space n={n} masks vs use_kernels=False")
     del logits_k, want_logits, ref_sh
 
     # genotypes without a pool branch: masks bit for bit
@@ -1419,6 +1590,92 @@ SHARDED_ONLY = ("upsample_argmax_sharded",)
 SCRIPT_OF = {n: s for s, ns in EXPERIMENT_KERNELS.items() for n in ns}
 
 
+@contextlib.contextmanager
+def coarse_decoder(torch, bits: int):
+    """A control: the bf16 node and 1x1 kernels (``cell.cu``,
+    ``pointwise.cu``) made wrong on purpose, each output rounded once more
+    to ``bits`` significant bits (bf16 keeps 8): up to 2^-bits of the
+    value, on about half the elements at bits = 7, where the tensor-core
+    kernels differ from their twins by one rounding on a few elements in
+    ten thousand."""
+    from segtpu_torch.kernels import chw_ops
+    saved = chw_ops._node_launch, chw_ops._pw_launch
+
+    def coarse(launch):
+        def run(*args, **kw):
+            out = launch(*args, **kw)
+            if out.dtype == torch.bfloat16:
+                m, e = torch.frexp(out.float())
+                out.copy_(torch.ldexp(torch.round(m * 2.0 ** bits)
+                                      / 2.0 ** bits, e))
+            return out
+        return run
+
+    chw_ops._node_launch, chw_ops._pw_launch = map(coarse, saved)
+    try:
+        yield
+    finally:
+        chw_ops._node_launch, chw_ops._pw_launch = saved
+
+
+def must_fail(what, fn) -> bool:
+    """Runs a check that a control must fail; True when it failed."""
+    try:
+        fn()
+    except SystemExit:
+        print(f"[control] {what}: fails, as it must")
+        return True
+    print(f"[control] {what}: PASSES on the control")
+    return False
+
+
+def phase_control(torch, bits: int) -> dict:
+    """``--control BITS``: the checks that hold the bf16 tensor-core
+    kernels at a tolerance, run with ``coarse_decoder(bits)``: each must
+    fail. Returns {check: failed}."""
+    from segtpu_torch.engine import Segmenter, ShardedSegmenter
+    from segtpu_torch.models import ARCHS
+    res = {}
+    with coarse_decoder(torch, bits):
+        model, dec, img, taps, logits, calls = decoder_calls(
+            torch, ARCHS["arch0"], (H, W), torch.bfloat16, N)
+        with torch.inference_mode():
+            for i, (name, fn, a) in enumerate(calls):
+                if name in ("sep_conv_chw", "cell_op_chw", "pw_chain_chw"):
+                    res[f"main call {i:2d} {name} vs its twin"] = must_fail(
+                        f"main call {i:2d} {name}",
+                        lambda: check_call(torch, name, fn, a, f"call {i}"))
+        res["logits and masks vs the f32 cuDNN run"] = must_fail(
+            "f32 reference", lambda: check_library_reference(
+                torch, model, dec, img, taps, logits))
+        del calls, taps, logits
+        frames = np.random.default_rng(3).integers(0, 256, (N, H, W, 3),
+                                                   dtype=np.uint8)
+        for name, genotype, fr in (("arch0", ARCHS["arch0"], frames),
+                                   ("G2", G2, frames[:, :H2, :W2].copy())):
+            model = make_model(torch, genotype)
+            seg = Segmenter(model, device="cuda")
+            ref = Segmenter(model, device="cuda", use_kernels=False)
+            x = torch.from_numpy(fr).cuda()
+            gaps = tie_gaps(torch, ref, x)
+            res[f"{name} b8 masks vs use_kernels=False"] = must_fail(
+                f"{name} masks", lambda: masks_hold(
+                    torch, seg.predict_batch(fr), ref.predict_batch(fr),
+                    gaps, MASK_FLOOR[name], f"control {name} b8 masks"))
+            if name != "arch0":
+                continue
+            devices = [torch.device("cuda", 0)] * N_SHARDS
+            sh, ref_sh = (ShardedSegmenter(e, devices) for e in (seg, ref))
+            with torch.inference_mode():
+                got = sh.decoder(sh.infer_shards(x, return_taps=True))
+                want = ref_sh.decoder(ref_sh.infer_shards(x,
+                                                          return_taps=True))
+            res["space shard logits vs the plain twins"] = must_fail(
+                "space logits", lambda: shard_logits_hold(torch, got, want))
+            del got, want, sh, ref_sh
+    return res
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1433,14 +1690,21 @@ def main() -> None:
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     phase_build()
+    if "--control" in sys.argv[1:]:
+        bits = int(sys.argv[sys.argv.index("--control") + 1])
+        res = phase_control(torch, bits)
+        print(gpu_line())
+        print(json.dumps({"control_bits": bits, "checks": res}))
+        sys.exit(0 if all(res.values()) else 1)
     img, front_err = phase_front(torch)
     logits, tail_err = phase_tail(torch)
     work, stage_ms = phase_encoder(torch, img)
     dec_ms = phase_decoder(torch, work)
-    seg, ref, frames, launches, _, masks = phase_slice(torch)
+    seg, ref, frames, launches, _, masks, gaps = phase_slice(torch)
     t = phase_timing(torch, img, logits, seg, ref, frames)
     work["upsample_argmax_sharded"] = sharded_tail(torch, logits)
-    space_launches, space_rate = phase_sharded(torch, seg, ref, frames, masks, t)
+    space_launches, space_rate = phase_sharded(torch, seg, ref, frames, masks,
+                                               gaps, t)
     launches.update({n: space_launches[n] for n in SHARDED_ONLY})
     exp_launches, exp_work, experiments = phase_experiments(torch)
     launches.update(exp_launches)

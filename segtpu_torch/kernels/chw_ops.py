@@ -31,24 +31,39 @@ passes ``use_kernels=False``. Numerics, as the TPU kernels:
   the compute dtype once, just before the project product; then
   ``+ bias``, ``+ residual`` (the input upcast) and one final rounding.
 
-The plain twins compute the same sums in the kernels' order with
+The plain twins compute the same sums in the kernels' f32 order with
 elementwise f32 tensor ops on upcast operands: a dense sum runs over
 input channels, then taps, in ascending order, starting from zero; a
 depthwise sum over taps in row-major order; the 1x1 products over
 channels. Each step is one rounded multiply and one rounded add (a bf16
-product is exact in f32, so the kernels' fused multiply-adds on bf16
-operands round the same way; their depthwise and f32 products round
-separately). A kernel and its twin therefore give the same bits in bf16
-and in f32, on any device and at any batch size, where a library
-convolution's sum order is unspecified: its bf16 roundings would differ
-from the kernel's here and there, and those differences grow through
-the 17 blocks of the encoder.
+product is exact in f32, so fused multiply-adds on bf16 operands round
+the same way; depthwise and f32 products round separately). The f32
+kernels, every depthwise sum and the bf16 encoder and resize kernels
+follow that order and give the twin's bits, on any device and at any
+batch size, where a library convolution's sum order is unspecified: its
+bf16 roundings would differ here and there, and those differences grow
+through the 17 blocks of the encoder.
+
+The bf16 decoder kernels of ``cell.cu`` (``sep_conv_chw``,
+``pair_op_chw``, ``cell_op_chw``) and ``pointwise.cu``
+(``pw_chain_chw``, ``pw_multi_chw``) compute their dense and 1x1
+products on the tensor cores (``mma.sync``), which sum 16 exact products
+at a time in their own f32 order: they match their twins to a tolerance
+(most elements bit for bit, the rest one rounding apart), not bit for
+bit. Their order is the same for every pixel wherever it sits in a tile,
+a shard's row window or a batch, so the kernels' own results do not
+depend on tiling, sharding or batching. Their weights are packed by
+``pack_weights``, once, where the folded decoder is built, and handed to
+the wrappers (``packed=``, a branch's ``"wp"``); their tiles and shared
+memory are planned by ``node_plan`` and ``pw_plan``, which mirror the
+sources' layouts.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 
 import torch
 import torch.nn.functional as F
@@ -57,6 +72,7 @@ from segtpu_torch.core.layers import ACTIVATIONS, BN_EPS, relu6
 
 _ACT_CODE = {"none": 0, "relu": 1, "relu6": 2}
 _SMEM_LIMIT = 227 * 1024      # opt-in shared memory per block on the H100
+_TWO_BLOCKS = 113 * 1024      # shared memory that leaves room for two blocks
 
 
 @torch.no_grad()
@@ -471,11 +487,203 @@ inv_res_chw.launches = 0
 inv_res_s2_chw.launches = 0
 
 
+# ------------------------------------- tensor-core weights and plans
+
+def _r8(v: int) -> int:
+    return -(-v // 8) * 8
+
+
+def _r16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def pack_weights(w, dtype=torch.bfloat16):
+    """OIHW [Cout, Cin, k, k] -> [k * k, Np, Kc] in ``dtype``, Np = Cout
+    and Kc = Cin rounded up to 8 and 16 with zeros: packed[t, o, c] =
+    w[o, c, t // k, t % k], the bf16 kernels' B operand (one row of input
+    channels per output channel and tap)."""
+    cout, cin, kh, kw = w.shape
+    out = torch.zeros((kh * kw, _r8(cout), _r16(cin)), dtype=dtype,
+                      device=w.device)
+    out[:, :cout, :cin] = w.to(dtype).permute(2, 3, 0, 1).reshape(
+        kh * kw, cout, cin)
+    return out
+
+
+def _check_packed(packed, shape, what):
+    """``packed`` is None or ``pack_weights`` of an OIHW weight of
+    ``shape``: the bf16 kernels' B operand, packed once by the weights'
+    owner (``models/fast_decoder.py`` folds it beside the OIHW weight)."""
+    if packed is None:
+        return
+    cout, cin, kh, kw = shape
+    want = (kh * kw, _r8(cout), _r16(cin))
+    if tuple(packed.shape) != want or packed.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: packed weight must be {want} bf16 "
+                         f"(pack_weights of {tuple(shape)}), got "
+                         f"{tuple(packed.shape)} {packed.dtype}")
+
+
+def _tc_operand(parts, packed, dev, what):
+    """The bf16 kernels' B operand of the OIHW weight that is ``parts``
+    concatenated along input channels: ``packed`` where its owner made
+    it (already checked by ``_check_packed``), else packed for this
+    call."""
+    if packed is None:
+        return pack_weights(parts[0] if len(parts) == 1
+                            else torch.cat(parts, 1))
+    if packed.device != dev or not packed.is_contiguous():
+        raise ValueError(f"{what}: packed weight must be contiguous on {dev}")
+    return packed
+
+
+_PW_PIXELS = 128      # pixels of a pointwise block (csrc/pointwise.cu kTP)
+_TC_GROUP = 64        # output channels a bf16 kernel accumulates at once
+
+
+def pw_smem(kc: int, cins, couts) -> int:
+    """Shared-memory bytes of a bf16 pointwise block (csrc/pointwise.cu
+    ``layout``): stage 0's input chunk [kc][128 + 8], the weights [nw][wcols
+    + 8], two intermediates [128][cmax + 8] for a chain, the output
+    [no][128 + 8], all bf16."""
+    ap = _PW_PIXELS + 8
+    wcols = max([kc] + [_r16(c) for c in cins[1:]])
+    nw = max(min(_TC_GROUP, _r16(c)) for c in couts)
+    no = min(_TC_GROUP, _r16(couts[-1]))
+    cmax = max((_r16(c) for c in couts[:-1]), default=0)
+    inter = _PW_PIXELS * (cmax + 8) if cmax else 0
+    return 2 * (kc * ap + nw * (wcols + 8) + 2 * inter + no * ap)
+
+
+@functools.lru_cache(maxsize=None)
+def _pw_plan(cins: tuple, couts: tuple):
+    return pw_plan(cins, couts)
+
+
+def pw_plan(cins, couts):
+    """(kc, shared bytes) of a bf16 pointwise launch whose stages take
+    ``cins`` and give ``couts`` channels: the most stage-0 channels per
+    staged chunk (a multiple of 16) that leave room for two blocks per SM,
+    else that fit one. The sum order does not depend on kc."""
+    kp0 = _r16(cins[0])
+    for limit in (_TWO_BLOCKS, _SMEM_LIMIT):
+        for kc in range(kp0, 0, -16):
+            smem = pw_smem(kc, cins, couts)
+            if smem <= limit:
+                return kc, smem
+    raise ValueError(f"pointwise: stages {list(zip(cins, couts))} do not fit "
+                     f"shared memory")
+
+
+_NODE_TH, _NODE_TW = 8, 32                  # csrc/cell.cu's output tile
+_NODE_PIXELS = _NODE_TH * _NODE_TW
+
+
+def node_window(k: int, dil: int, kyg: int):
+    """(rows, columns, staged columns) of a bf16 node window for ``kyg``
+    tap rows of a k x k conv at dilation ``dil``: the staged columns start
+    at an 8-aligned image column and are a multiple of 8."""
+    lo = dil * (k // 2)
+    sw = _NODE_TW + dil * (k - 1)
+    return _NODE_TH + dil * (kyg - 1), sw, _r8((-lo) % 8 + sw)
+
+
+def node_branch_smem(kind: str, cin: int, k: int, dil: int, cc: int,
+                     kyg: int, n16: int) -> int:
+    """Shared-memory bytes of one branch of a bf16 node (csrc/cell.cu
+    ``branch_bytes``): sep, the depthwise output [256][Kc + 8], the 1x1
+    weights [n16][Kc + 8], the f32 depthwise weights and biases and two
+    windows of cc channels (one filling while the other is read); conv, a
+    window of cc channels, its channel-innermost copy and two buffers of a
+    window's weights [kyg * k][n16][cc + 8]."""
+    if kind == "sep":
+        kp = _r16(cin) + 8
+        sh, _, swa = node_window(k, dil, k)
+        return (2 * (_NODE_PIXELS * kp + n16 * kp + 2 * cc * sh * swa)
+                + 4 * (_r4(cin * k * k) + _r4(cin)))
+    if kind == "conv":
+        sh, sw, swa = node_window(k, dil, kyg)
+        return 2 * (cc * sh * swa + sh * sw * (cc + 8)
+                    + 2 * kyg * k * n16 * (cc + 8))
+    return 0
+
+
+def _node_sums_bytes(cout: int):
+    """(n16, bytes of the f32 branch-sum buffer [n16][256 + 4])."""
+    n16 = _r16(min(cout, _TC_GROUP))
+    return n16, 4 * n16 * (_NODE_PIXELS + 4)
+
+
+def node_smem(branches, plans, cout: int) -> int:
+    """Shared-memory bytes of a bf16 node launch with these plans: the
+    branch that stages more runs first, over the whole of it; the branch
+    sums sit at the top, beside the second branch's staging."""
+    n16, sums = _node_sums_bytes(cout)
+    sizes = sorted((node_branch_smem(kind, cin, k, dil, cc, kyg, n16)
+                    for (kind, cin, k, dil), (cc, kyg) in zip(branches, plans)
+                    if kind in ("conv", "sep")), reverse=True)
+    if not sizes:
+        return 0
+    if len(sizes) == 1:
+        return max(sizes[0], sums)
+    return max(sizes[0], sizes[1] + sums)
+
+
+def _node_rounds(kind: str, cin: int, k: int, cc: int, kyg: int) -> int:
+    """Windows a branch stages with this plan."""
+    if kind == "sep":
+        return -(-cin // cc)
+    if kind == "conv":
+        return -(-_r16(cin) // cc) * (k // kyg)
+    return 0
+
+
+@functools.lru_cache(maxsize=None)
+def _node_plan(branches: tuple, cout: int):
+    return node_plan(branches, cout)
+
+
+def node_plan(branches, cout: int):
+    """([(cc, kyg)] per branch, shared bytes) of a bf16 node launch;
+    ``branches`` lists (kind, cin, k, dil). A sep branch stages cc channels
+    per window (a multiple of 4, or all); a conv branch a multiple of 16
+    with every tap row (kyg = k), or 16 channels one tap row at a time
+    (kyg = 1). Of the plans that leave room for two blocks per SM (else of
+    those that fit one) the one with the fewest windows is taken. Every
+    plan keeps the sum order (16 channels, tap row, tap column), so the
+    plan does not change the bits."""
+    cands = []
+    for kind, cin, k, dil in branches:
+        if kind == "sep":
+            cands.append([(cc, k) for cc in range(min(cin, _TC_GROUP), 0, -1)
+                          if cc % 4 == 0 or cc == cin])
+        elif kind == "conv":
+            cands.append([(cc, k) for cc in range(min(_r16(cin), _TC_GROUP),
+                                                  0, -16)]
+                         + ([(16, 1)] if k > 1 else []))
+        else:
+            cands.append([(0, 0)])
+    for limit in (_TWO_BLOCKS, _SMEM_LIMIT):
+        best = None
+        for plans in itertools.product(*cands):
+            smem = node_smem(branches, plans, cout)
+            if smem > limit:
+                continue
+            rounds = sum(_node_rounds(kind, cin, k, cc, kyg) for
+                         (kind, cin, k, _), (cc, kyg) in zip(branches, plans))
+            if best is None or (rounds, -smem) < best[0]:
+                best = ((rounds, -smem), list(plans), smem)
+        if best is not None:
+            return best[1], best[2]
+    raise ValueError(f"node: branches {list(branches)} do not fit shared "
+                     f"memory")
+
+
 # ------------------------------------------------- decoder 1x1 products
 
 def _pw_geometry(xs, stages, acts, what):
     """Checks the sources and stages of a 1x1 chain; returns (B, H, W,
-    output channels)."""
+    output channels, the stages' weight shapes)."""
     if not xs:
         raise ValueError(f"{what} needs at least one source")
     for x in xs:
@@ -488,17 +696,32 @@ def _pw_geometry(xs, stages, acts, what):
     if not stages or len(acts) != len(stages):
         raise ValueError(f"{what}: {len(stages)} stages, {len(acts)} acts")
     c = sum(x.shape[1] for x in xs)
+    shapes = []
     for (wt, bias), act in zip(stages, acts):
-        if wt.ndim != 4 or tuple(wt.shape[1:]) != (c, 1, 1):
+        shape = _w_shape(wt)
+        shapes.append(shape)
+        if len(shape) != 4 or shape[1:] != (c, 1, 1):
             raise ValueError(f"{what}: stage weight must be OIHW (Cout, {c}, "
-                             f"1, 1), got {tuple(wt.shape)}")
-        if tuple(bias.shape) != (wt.shape[0],):
-            raise ValueError(f"{what}: bias must be [{wt.shape[0]}], got "
+                             f"1, 1), got {shape}")
+        if tuple(bias.shape) != (shape[0],):
+            raise ValueError(f"{what}: bias must be [{shape[0]}], got "
                              f"{tuple(bias.shape)}")
         if act not in _ACT_CODE:
             raise ValueError(f"act is one of {sorted(_ACT_CODE)}, not {act!r}")
-        c = wt.shape[0]
-    return b, h, w, c
+        c = shape[0]
+    return b, h, w, c, shapes
+
+
+def _w_shape(w):
+    """The shape of a stage weight, or of the concatenation along input
+    channels of a list of parts (a multi-source product's weights)."""
+    if not isinstance(w, (list, tuple)):
+        return tuple(w.shape)
+    o, _, *hw = w[0].shape
+    for p in w:
+        if p.ndim != 4 or p.shape[0] != o or list(p.shape[2:]) != hw:
+            return tuple(tuple(p.shape) for p in w)   # rejected by the caller
+    return (o, sum(p.shape[1] for p in w), *hw)
 
 
 def _pw_plain(xs, stages, acts):
@@ -513,32 +736,57 @@ def _pw_plain(xs, stages, acts):
     return y.to(dt)
 
 
-def _pw_launch(xs, stages, acts, what):
-    b, h, w, cout = _pw_geometry(xs, stages, acts, what)
+def _pw_packed(packed, shapes, what):
+    """``packed`` (None, or one ``pack_weights`` operand or None per
+    stage) checked against the stages' weight shapes; a list per stage."""
+    if packed is None:
+        return [None] * len(shapes)
+    if len(packed) != len(shapes):
+        raise ValueError(f"{what}: {len(packed)} packed weights for "
+                         f"{len(shapes)} stages")
+    for p, shape in zip(packed, shapes):
+        _check_packed(p, shape, what)
+    return list(packed)
+
+
+def _pw_launch(xs, stages, acts, packed, what):
+    """The kernel on checked sources, stages and packed weights (a list
+    from ``_pw_packed``)."""
+    b, h, w, cout, shapes = _pw_geometry(xs, stages, acts, what)
     if len(xs) > 4 or len(stages) > 4 or (len(stages) > 1 and len(xs) > 1):
         raise ValueError(f"{what} kernel takes up to 4 sources for one "
                          f"stage, or one source for up to 4 stages")
     if not all(x.is_contiguous() for x in xs):
         raise ValueError(f"{what} kernel needs contiguous sources")
     dev, dt = xs[0].device, xs[0].dtype
-    ws = [_on(wt.reshape(wt.shape[0], -1), dt, dev) for wt, _ in stages]
+    bf16 = dt == torch.bfloat16
+    parts = [list(wt) if isinstance(wt, (list, tuple)) else [wt]
+             for wt, _ in stages]
+    cins = [shape[1] for shape in shapes]
+    couts = [shape[0] for shape in shapes]
+    for p in parts:
+        if any(t.device != dev for t in p):
+            raise ValueError(f"operand on {p[0].device}, x on {dev}")
+    # bf16: packed for the tensor cores; f32: [cout, cin] as given
+    ws = [_tc_operand(p, pk, dev, what) if bf16 else
+          _on(torch.cat(p, 1).reshape(p[0].shape[0], -1), dt, dev)
+          for p, pk in zip(parts, packed)]
+    kc, smem = _pw_plan(tuple(cins), tuple(couts)) if bf16 else (0, 0)
     bs = [_on(bias, torch.float32, dev) for _, bias in stages]
     out = torch.empty((b, cout, h, w), dtype=dt, device=dev)
     arrays = (_ptrs(xs), _ints([x.shape[1] for x in xs]), _ptrs(ws),
-              _ptrs(bs), _ints([wt.shape[1] for wt in ws]),
-              _ints([wt.shape[0] for wt in ws]),
+              _ptrs(bs), _ints(cins), _ints(couts),
               _ints([_ACT_CODE[a] for a in acts]))
     from segtpu_torch.kernels._build import load
     fn = load("pointwise").segtpu_pointwise
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [
         ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                                ctypes.c_longlong, ctypes.c_int,
-                                ctypes.c_void_p]
+                                ctypes.c_longlong] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     a = [ctypes.addressof(arr) for arr in arrays]
     rc = _launch(fn, out, a[0], a[1], len(xs), a[2], a[3], a[4], a[5], a[6],
-                 len(stages), out.data_ptr(), b, h * w,
-                 int(dt == torch.bfloat16))
+                 len(stages), out.data_ptr(), b, h * w, int(bf16), kc, smem)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     return out
@@ -552,16 +800,22 @@ def pw_chain_chw_plain(x, stages, *, acts=None):
     return _pw_plain([x], stages, acts)
 
 
-def pw_chain_chw(x, stages, *, acts=None, use_kernels: bool = True):
+def pw_chain_chw(x, stages, *, acts=None, packed=None,
+                 use_kernels: bool = True):
     """x [B, C0, H, W] through 1x1 stages [(w OIHW [C_i+1, C_i, 1, 1],
     f32 bias), ...] -> [B, Cn, H, W]: each stage act(w @ y + bias) in
     f32, rounded to x's dtype (the storage rounding of running the stages
-    one by one). ``acts`` per stage, default all "relu". On a CUDA tensor
-    this launches the kernel (``pw_chain_chw.launches``)."""
+    one by one). ``acts`` per stage, default all "relu". ``packed``: per
+    stage, ``pack_weights(w)`` made once by the weights' owner, or None
+    (the bf16 kernel then packs w for the call). On a CUDA tensor this
+    launches the kernel (``pw_chain_chw.launches``)."""
+    acts = ["relu"] * len(stages) if acts is None else list(acts)
+    packed = _pw_packed(packed, _pw_geometry([x], stages, acts,
+                                             "pw_chain_chw")[4],
+                        "pw_chain_chw")
     if _use_plain(x, use_kernels, "pw_chain_chw"):
         return pw_chain_chw_plain(x, stages, acts=acts)
-    acts = ["relu"] * len(stages) if acts is None else list(acts)
-    out = _pw_launch([x], stages, acts, "pw_chain_chw")
+    out = _pw_launch([x], stages, acts, packed, "pw_chain_chw")
     pw_chain_chw.launches += 1
     return out
 
@@ -573,17 +827,20 @@ def pw_multi_chw_plain(xs, ws, bias, *, act: str = "none"):
     return _pw_plain(xs, stages, [act])
 
 
-def pw_multi_chw(xs, ws, bias, *, act: str = "none",
+def pw_multi_chw(xs, ws, bias, *, act: str = "none", packed=None,
                  use_kernels: bool = True):
     """sum_i ws[i] @ xs[i] + bias, then act: xs[i] [B, C_i, H, W] and
     ws[i] OIHW [Cout, C_i, 1, 1] -> [B, Cout, H, W], equal to a 1x1 conv
     of the concatenated sources without the concatenation (the decoder
-    head). On a CUDA tensor this launches the kernel
-    (``pw_multi_chw.launches``)."""
+    head). ``packed``: ``pack_weights`` of the ws concatenated along
+    input channels, made once by their owner, or None. On a CUDA tensor
+    this launches the kernel (``pw_multi_chw.launches``)."""
+    stages = [(list(ws), bias)]
+    packed = _pw_packed(None if packed is None else [packed], _pw_geometry(
+        xs, stages, [act], "pw_multi_chw")[4], "pw_multi_chw")
     if _use_plain(xs[0], use_kernels, "pw_multi_chw"):
         return pw_multi_chw_plain(xs, ws, bias, act=act)
-    out = _pw_launch(list(xs), [(torch.cat(list(ws), 1), bias)], [act],
-                     "pw_multi_chw")
+    out = _pw_launch(list(xs), stages, [act], packed, "pw_multi_chw")
     pw_multi_chw.launches += 1
     return out
 
@@ -634,6 +891,7 @@ def _branch_check(br, x, shape, what):
         if tuple(br[name].shape) != shp:
             raise ValueError(f"{what}: {kind} {name} must be {shp}, got "
                              f"{tuple(br[name].shape)}")
+    _check_packed(br.get("wp"), want["w" if kind == "conv" else "wpw"], what)
 
 
 def _branch_plain(br, x, dt):
@@ -683,6 +941,7 @@ def _node_launch(pairs, add, vec, shape, dt, dev, what):
                             or tuple(add.shape) != shape):
         raise ValueError(f"{what} kernel needs acc {shape} contiguous in {dt}")
     vk = _on(vec, torch.float32, dev)
+    bf16 = dt == torch.bfloat16
     cols = {n: [] for n in ("kind", "x", "cin", "k", "dil", "w", "b", "wdw",
                             "bdw")}
     for br, x in pairs:
@@ -693,26 +952,35 @@ def _node_launch(pairs, add, vec, shape, dt, dev, what):
         cols["k"].append(br.get("k", 1))
         cols["dil"].append(br.get("dil", 1))
         conv, sep = kind == "conv", kind == "sep"
-        cols["w"].append(_on(br["w"], dt, dev) if conv else
-                         _on(br["wpw"], dt, dev) if sep else None)
+        wt = br["w"] if conv else br["wpw"] if sep else None
+        if wt is not None and wt.device != dev:
+            raise ValueError(f"operand on {wt.device}, x on {dev}")
+        # bf16: packed for the tensor cores; f32: OIHW as given
+        cols["w"].append(None if wt is None else
+                         _tc_operand([wt], br.get("wp"), dev, what) if bf16
+                         else _on(wt, dt, dev))
         cols["b"].append(_on(br["b"] if conv else br["bpw"], torch.float32,
                              dev) if conv or sep else None)
         cols["wdw"].append(_on(br["wdw"], torch.float32, dev) if sep else None)
         cols["bdw"].append(_on(br["bdw"], torch.float32, dev) if sep else None)
+    plans, smem = _node_plan(tuple(zip([br["kind"] for br, _ in pairs],
+                                       cols["cin"], cols["k"], cols["dil"])),
+                             cout) if bf16 else ([(0, 0)] * len(pairs), 0)
     arrays = [_ints(cols["kind"]), _ptrs(cols["x"]), _ints(cols["cin"]),
               _ints(cols["k"]), _ints(cols["dil"]), _ptrs(cols["w"]),
-              _ptrs(cols["b"]), _ptrs(cols["wdw"]), _ptrs(cols["bdw"])]
+              _ptrs(cols["b"]), _ptrs(cols["wdw"]), _ptrs(cols["bdw"]),
+              _ints([cc for cc, _ in plans]), _ints([g for _, g in plans])]
     out = torch.empty(shape, dtype=dt, device=dev)
     from segtpu_torch.kernels._build import load
     fn = load("cell").segtpu_cell_node
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 14 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = _launch(fn, out, len(pairs),
                  *[ctypes.addressof(a) for a in arrays],
                  None if add is None else add.data_ptr(),
                  None if vk is None else vk.data_ptr(), out.data_ptr(),
-                 b, cout, h, w, int(dt == torch.bfloat16))
+                 b, cout, h, w, int(bf16), smem)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     return out
@@ -732,22 +1000,25 @@ def _node(pairs, add, vec, shape, ref, plain: bool, what):
     return _node_launch(pairs, add, vec, shape, ref.dtype, ref.device, what)
 
 
-def _op_branch(op, weights):
-    """('conv' | 'sep', k, dilation) and its weights -> a branch dict."""
+def _op_branch(op, weights, packed=None):
+    """('conv' | 'sep', k, dilation), its weights and its packed dense or
+    1x1 weight (or None) -> a branch dict."""
     kind, k, dil = op
     if kind == "conv":
         w, b = weights
-        return {"kind": "conv", "k": k, "dil": dil, "w": w, "b": b}
+        return {"kind": "conv", "k": k, "dil": dil, "w": w, "b": b,
+                "wp": packed}
     if kind == "sep":
         wdw, bdw, wpw, bpw = weights
         return {"kind": "sep", "k": k, "dil": dil, "wdw": wdw, "bdw": bdw,
-                "wpw": wpw, "bpw": bpw}
+                "wpw": wpw, "bpw": bpw, "wp": packed}
     raise ValueError(f"op kind is 'conv' or 'sep', not {kind!r}")
 
 
-def _sep_args(x, w_dw, b_dw, w_pw, b_pw, acc, vec_acc, k, dilation):
+def _sep_args(x, w_dw, b_dw, w_pw, b_pw, acc, vec_acc, k, dilation,
+              packed=None):
     _check_x(x, "sep_conv_chw")
-    br = _op_branch(("sep", k, dilation), (w_dw, b_dw, w_pw, b_pw))
+    br = _op_branch(("sep", k, dilation), (w_dw, b_dw, w_pw, b_pw), packed)
     shape = (x.shape[0], w_pw.shape[0], *x.shape[2:])
     return [(br, x)], acc, vec_acc, shape
 
@@ -760,23 +1031,27 @@ def sep_conv_chw_plain(x, w_dw, b_dw, w_pw, b_pw, acc=None, vec_acc=None, *,
 
 
 def sep_conv_chw(x, w_dw, b_dw, w_pw, b_pw, acc=None, vec_acc=None, *,
-                 k: int, dilation: int = 1, use_kernels: bool = True):
+                 k: int, dilation: int = 1, packed=None,
+                 use_kernels: bool = True):
     """Separable conv with BN folded: relu(pw(round(relu(dw(x) + b_dw)))
     + b_pw) (+ acc) (+ vec_acc), x [B, C, H, W] -> [B, Cout, H, W]; the
     depthwise k x k (dilation, zero padding) in f32 with f32 weights
-    [C, 1, k, k], the 1x1 OIHW [Cout, C, 1, 1] in the dtype. On a CUDA
+    [C, 1, k, k], the 1x1 OIHW [Cout, C, 1, 1] in the dtype.
+    ``packed``: ``pack_weights(w_pw)`` made once by the weights' owner,
+    or None (the bf16 kernel then packs it for the call). On a CUDA
     tensor this launches the kernel (``sep_conv_chw.launches``)."""
     plain = _use_plain(x, use_kernels, "sep_conv_chw")
     out = _node(*_sep_args(x, w_dw, b_dw, w_pw, b_pw, acc, vec_acc, k,
-                           dilation), x, plain, "sep_conv_chw")
+                           dilation, packed), x, plain, "sep_conv_chw")
     if not plain:
         sep_conv_chw.launches += 1
     return out
 
 
-def _pair_args(x1, weights1, x2, weights2, op1, op2):
+def _pair_args(x1, weights1, x2, weights2, op1, op2, packed=None):
     _check_x(x1, "pair_op_chw")
-    b1, b2 = _op_branch(op1, weights1), _op_branch(op2, weights2)
+    p1, p2 = (None, None) if packed is None else packed
+    b1, b2 = _op_branch(op1, weights1, p1), _op_branch(op2, weights2, p2)
     cout = (weights1[0] if op1[0] == "conv" else weights1[2]).shape[0]
     return [(b1, x1), (b2, x2)], None, None, (x1.shape[0], cout,
                                               *x1.shape[2:])
@@ -788,16 +1063,18 @@ def pair_op_chw_plain(x1, weights1, x2, weights2, *, op1, op2):
                  "pair_op_chw")
 
 
-def pair_op_chw(x1, weights1, x2, weights2, *, op1, op2,
+def pair_op_chw(x1, weights1, x2, weights2, *, op1, op2, packed=None,
                 use_kernels: bool = True):
     """A cell node's two branches in one kernel: op1(x1) + op2(x2), each
     op ('conv' | 'sep', k, dilation) ending in relu, summed in f32 and
     rounded once; weights (w, b) for conv, (w_dw, b_dw, w_pw, b_pw) for
-    sep, as ``conv_chw``/``sep_conv_chw`` take them. On a CUDA tensor
+    sep, as ``conv_chw``/``sep_conv_chw`` take them. ``packed``: the two
+    ops' ``pack_weights`` of w (conv) or w_pw (sep), each None where the
+    bf16 kernel is to pack it for the call; or None. On a CUDA tensor
     this launches the kernel (``pair_op_chw.launches``)."""
     plain = _use_plain(x1, use_kernels, "pair_op_chw")
-    out = _node(*_pair_args(x1, weights1, x2, weights2, op1, op2), x1, plain,
-                "pair_op_chw")
+    out = _node(*_pair_args(x1, weights1, x2, weights2, op1, op2, packed), x1,
+                plain, "pair_op_chw")
     if not plain:
         pair_op_chw.launches += 1
     return out

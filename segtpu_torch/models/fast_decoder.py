@@ -32,8 +32,9 @@ import torch
 import torch.nn as nn
 
 from segtpu_torch.kernels.chw_ops import (cell_op_chw, conv_chw,
-                                          pair_op_chw, pw_chain_chw,
-                                          pw_multi_chw, sep_conv_chw)
+                                          pack_weights, pair_op_chw,
+                                          pw_chain_chw, pw_multi_chw,
+                                          sep_conv_chw)
 from segtpu_torch.kernels.resize_chw import resize_chw, shard_interp_bands
 from segtpu_torch.models.fast_encoder import _fold, crop_h
 from segtpu_torch.models.micro_decoders import (MicroDecoder,
@@ -53,10 +54,17 @@ def per_image(reduce, x):
                       for i in range(x.shape[0])])
 
 
+def _tc_packed(w, compute_dtype):
+    """The bf16 tensor-core kernels' operand of the OIHW weight w, packed
+    once here (``pack_weights``); None in f32, whose kernels read OIHW."""
+    return pack_weights(w) if compute_dtype == torch.bfloat16 else None
+
+
 class FoldedOp(nn.Module):
     """One cell op with BN folded: kind "skip", "none", "gap", "conv" or
     "sep" (its repeats as buffers ``dw{r}``/``bdw{r}``/``pw{r}``/
-    ``bpw{r}``)."""
+    ``bpw{r}``, and ``pwp{r}``, the 1x1 weight packed for the bf16
+    kernels; a conv's as ``w``, ``b`` and ``wp``)."""
 
     def __init__(self, op, compute_dtype):
         super().__init__()
@@ -83,15 +91,22 @@ class FoldedOp(nn.Module):
                 self.register_buffer(f"bdw{r}", bd)
                 self.register_buffer(f"pw{r}", wp.to(compute_dtype))
                 self.register_buffer(f"bpw{r}", bp)
+                self.register_buffer(f"pwp{r}", _tc_packed(wp, compute_dtype))
         else:
             self.kind = "conv"
             w, b = _fold(op.conv)
             self.register_buffer("w", w.to(compute_dtype))
             self.register_buffer("b", b)
+            self.register_buffer("wp", _tc_packed(w, compute_dtype))
 
     def rep(self, r: int):
         return (getattr(self, f"dw{r}"), getattr(self, f"bdw{r}"),
                 getattr(self, f"pw{r}"), getattr(self, f"bpw{r}"))
+
+    def packed(self, r: int = 0):
+        """Repeat r's packed 1x1 weight (sep), or the packed dense weight
+        (conv); None in f32."""
+        return getattr(self, f"pwp{r}") if self.kind == "sep" else self.wp
 
     def vector(self, x):
         """The pool op's [B, C] f32 result, relu(mean(x) @ w + b), without
@@ -118,18 +133,20 @@ class FoldedOp(nn.Module):
                 last = r == self.n_reps - 1
                 x = sep_conv_chw(x, *self.rep(r), acc if last else None,
                                  vec_acc if last else None, k=self.k,
-                                 dilation=self.dil, use_kernels=use_kernels)
+                                 dilation=self.dil, packed=self.packed(r),
+                                 use_kernels=use_kernels)
             return x
         return conv_chw(x, self.w, self.b, acc, vec_acc, k=self.k,
                         dilation=self.dil, use_kernels=use_kernels)
 
     def fuse_spec(self):
-        """(op, weights) of this op's last kernel for ``pair_op_chw``, or
-        None (gap, skip, none)."""
+        """(op, weights, packed weight) of this op's last kernel for
+        ``pair_op_chw``, or None (gap, skip, none)."""
         if self.kind == "conv":
-            return ("conv", self.k, self.dil), (self.w, self.b)
+            return ("conv", self.k, self.dil), (self.w, self.b), self.wp
         if self.kind == "sep":
-            return ("sep", self.k, self.dil), self.rep(self.n_reps - 1)
+            r = self.n_reps - 1
+            return ("sep", self.k, self.dil), self.rep(r), self.packed(r)
         return None
 
     def prefix(self, x, use_kernels: bool):
@@ -137,7 +154,8 @@ class FoldedOp(nn.Module):
         if self.kind == "sep":
             for r in range(self.n_reps - 1):
                 x = sep_conv_chw(x, *self.rep(r), k=self.k,
-                                 dilation=self.dil, use_kernels=use_kernels)
+                                 dilation=self.dil, packed=self.packed(r),
+                                 use_kernels=use_kernels)
         return x
 
     def branch(self, entry: int):
@@ -145,24 +163,26 @@ class FoldedOp(nn.Module):
         repeat; gap vectors are added by the caller)."""
         if self.kind == "conv":
             return {"kind": "conv", "entry": entry, "k": self.k,
-                    "dil": self.dil, "w": self.w, "b": self.b}
+                    "dil": self.dil, "w": self.w, "b": self.b,
+                    "wp": self.wp}
         if self.kind == "sep":
             wdw, bdw, wpw, bpw = self.rep(0)
             return {"kind": "sep", "entry": entry, "k": self.k,
                     "dil": self.dil, "wdw": wdw, "bdw": bdw, "wpw": wpw,
-                    "bpw": bpw}
+                    "bpw": bpw, "wp": self.packed(0)}
         if self.kind == "skip":
             return {"kind": "skip", "entry": entry}
         return {"kind": "none"}
 
 
 class _LazyTap:
-    """A tap whose 1x1 adapt is deferred into its one consumer's kernel;
+    """A tap whose 1x1 adapt (a ``_Folded1x1``) is deferred into its one
+    consumer's kernel: ``adapt`` its (w, b), ``packed`` its packed weight;
     ``shape`` is the adapted shape."""
 
     def __init__(self, x, adapt):
-        self.x, self.adapt = x, adapt
-        self.shape = (x.shape[0], adapt[0].shape[0], *x.shape[2:])
+        self.x, self.adapt, self.packed = x, adapt.wb(), adapt.wp
+        self.shape = (x.shape[0], adapt.w.shape[0], *x.shape[2:])
 
 
 def _node_pair(opa, xa, opb, xb, uk: bool):
@@ -172,7 +192,8 @@ def _node_pair(opa, xa, opb, xb, uk: bool):
     fa, fb = opa.fuse_spec(), opb.fuse_spec()
     if fa is not None and fb is not None:
         return pair_op_chw(opb.prefix(xb, uk), fb[1], opa.prefix(xa, uk),
-                           fa[1], op1=fb[0], op2=fa[0], use_kernels=uk)
+                           fa[1], op1=fb[0], op2=fa[0], packed=(fb[2], fa[2]),
+                           use_kernels=uk)
     if opa.kind == "gap" and fb is not None:
         return opb(xb, vec_acc=opa.vector(xa), use_kernels=uk)
     if opb.kind == "gap" and fa is not None:
@@ -204,6 +225,8 @@ class FoldedMicroDecoder(nn.Module):
             raise ValueError("fold_decoder folds f32 weights: fold before "
                              "casting")
         self.register_buffer("clf_w", dec.clf.w.detach().to(compute_dtype))
+        self.register_buffer("clf_wp", _tc_packed(dec.clf.w.detach(),
+                                                  compute_dtype))
         self.register_buffer("clf_b", dec.clf.b.detach().float())
         self.collect = list(dec.collect)
         self.cell_collect = _cell_collect_inds(cell_config)
@@ -261,12 +284,15 @@ class FoldedMicroDecoder(nn.Module):
 
     @staticmethod
     def _resize(x, hw, ac: bool, uk: bool, acc=None, acc_chain=None):
+        """x resized to hw (+ acc, or + the 1x1 chain of ``acc_chain`` =
+        (raw, stages, the stages' packed weights))."""
         if tuple(x.shape[2:]) == hw:
             if acc_chain is not None:
-                acc = pw_chain_chw(acc_chain[0], acc_chain[1], use_kernels=uk)
+                raw, stages, packed = acc_chain
+                acc = pw_chain_chw(raw, stages, packed=packed, use_kernels=uk)
             return x if acc is None else x + acc
-        return resize_chw(x, hw, acc, acc_chain, align_corners=ac,
-                          use_kernels=uk)
+        return resize_chw(x, hw, acc, None if acc_chain is None
+                          else acc_chain[:2], align_corners=ac, use_kernels=uk)
 
     def forward(self, taps, *, align_corners: bool = True,
                 use_kernels: bool = True):
@@ -277,7 +303,7 @@ class FoldedMicroDecoder(nn.Module):
 
         pool: List = []
         for lazy, t, a in zip(self.lazy, taps, self.adapt):
-            pool.append(_LazyTap(t, a.wb()) if lazy
+            pool.append(_LazyTap(t, a) if lazy
                         else conv_chw(t, *a.wb(), k=1, use_kernels=uk))
         for bi, (i, j) in enumerate(self.conns):
             br = [(pool[i], self.agg1[bi]), (pool[j], self.agg2[bi])]
@@ -291,7 +317,8 @@ class FoldedMicroDecoder(nn.Module):
             (e1, m1), (e2, m2) = br
             if isinstance(e1, _LazyTap) and shp[0][2:] == hw:
                 y = self._resize(agg_pw(e2, m2), hw, ac, uk,
-                                 acc_chain=(e1.x, [e1.adapt, m1.wb()]))
+                                 acc_chain=(e1.x, [e1.adapt, m1.wb()],
+                                            [e1.packed, m1.wp]))
             else:
                 y = self._resize(agg_pw(e2, m2), hw, ac, uk,
                                  acc=self._resize(agg_pw(e1, m1), hw, ac, uk))
@@ -311,14 +338,15 @@ class FoldedMicroDecoder(nn.Module):
         for s in srcs:
             ws.append(self.clf_w[:, off:off + s.shape[1]])
             off += s.shape[1]
-        return pw_multi_chw(srcs, ws, self.clf_b, act="none", use_kernels=uk)
+        return pw_multi_chw(srcs, ws, self.clf_b, act="none",
+                            packed=self.clf_wp, use_kernels=uk)
 
     def _agg_pw(self, entry, mod, uk: bool):
         """An aggregate branch's 1x1 on a pool entry; a lazy tap's
         pending adapt runs in the same kernel."""
         if isinstance(entry, _LazyTap):
             return pw_chain_chw(entry.x, [entry.adapt, mod.wb()],
-                                use_kernels=uk)
+                                packed=[entry.packed, mod.wp], use_kernels=uk)
         return conv_chw(entry, *mod.wb(), k=1, use_kernels=uk)
 
 
@@ -331,6 +359,7 @@ class _Folded1x1(nn.Module):
         w, b = _fold(conv_bn)
         self.register_buffer("w", w.to(compute_dtype))
         self.register_buffer("b", b)
+        self.register_buffer("wp", _tc_packed(w, compute_dtype))
 
     def wb(self):
         return self.w, self.b
@@ -465,19 +494,20 @@ class ShardedMicroDecoder:
         decoder adds them). ``shard``: returns the shards' rows, and
         ``acc`` holds rows; else the whole map, and ``acc`` holds whole
         maps. ``acc_chain`` = (the shards' rows of the raw tap, the
-        stages per shard)."""
+        stages per shard, their packed weights per shard)."""
         n, ac, uk = self.n, self.ac, self.uk
         hw = (int(hw[0]), int(hw[1]))
         fh, fw = e.full_hw(n)
 
         def one(s, x, accs, raws, band=None):
             a = None if accs is None else accs[s]
-            ch = None if acc_chain is None else (raws[s], acc_chain[1][s])
+            ch = None if acc_chain is None else (raws[s], acc_chain[1][s],
+                                                 acc_chain[2][s])
             if (fh, fw) == hw:      # nothing to resize: the adds alone
                 return FoldedMicroDecoder._resize(
                     x, tuple(x.shape[2:]), ac, uk, acc=a, acc_chain=ch)
-            return resize_chw(x, hw, a, ch, align_corners=ac, use_kernels=uk,
-                              shard=band)
+            return resize_chw(x, hw, a, None if ch is None else ch[:2],
+                              align_corners=ac, use_kernels=uk, shard=band)
 
         def whole(accs):
             full = self._full(e)
@@ -534,10 +564,12 @@ class ShardedMicroDecoder:
         xs = self._prefix(sel, xs)
         xe = halo_exchange(xs, he, he)
         ae = None if acc is None else halo_exchange(acc, he, he)
+        r = op0.n_reps - 1
         return [crop_h(sep_conv_chw(
-            xe[s], *sel(d).rep(op0.n_reps - 1), None if ae is None else ae[s],
+            xe[s], *sel(d).rep(r), None if ae is None else ae[s],
             None if vec is None else vec[s], k=op0.k, dilation=op0.dil,
-            use_kernels=uk), he, he) for s, d in enumerate(self.decs)]
+            packed=sel(d).packed(r), use_kernels=uk), he, he)
+            for s, d in enumerate(self.decs)]
 
     def _prefix(self, sel, xs):
         """Every kernel of a sep op but the last, each repeat extended
@@ -548,6 +580,7 @@ class ShardedMicroDecoder:
                 xe = halo_exchange(xs, op0.halo, op0.halo)
                 xs = [crop_h(sep_conv_chw(xe[s], *sel(d).rep(r), k=op0.k,
                                           dilation=op0.dil,
+                                          packed=sel(d).packed(r),
                                           use_kernels=self.uk),
                              op0.halo, op0.halo)
                       for s, d in enumerate(self.decs)]
@@ -561,10 +594,12 @@ class ShardedMicroDecoder:
             he = max(opa.halo, opb.halo)
             x1 = halo_exchange(self._prefix(selb, xb), he, he)
             x2 = halo_exchange(self._prefix(sela, xa), he, he)
+            specs = [(selb(d).fuse_spec(), sela(d).fuse_spec())
+                     for d in self.decs]
             return [crop_h(pair_op_chw(
-                x1[s], selb(d).fuse_spec()[1], x2[s], sela(d).fuse_spec()[1],
-                op1=fb[0], op2=fa[0], use_kernels=self.uk), he, he)
-                for s, d in enumerate(self.decs)]
+                x1[s], sb[1], x2[s], sa[1], op1=fb[0], op2=fa[0],
+                packed=(sb[2], sa[2]), use_kernels=self.uk), he, he)
+                for s, (sb, sa) in enumerate(specs)]
         if opa.kind == "gap" and fb is not None:
             return self._sh_op(selb, xb, vec=self._vector(sela, xa))
         if opb.kind == "gap" and fa is not None:
@@ -640,7 +675,7 @@ class ShardedMicroDecoder:
         pool = []
         for i, ts in enumerate(taps):
             pool.append(_Entry(
-                [_LazyTap(t, d.adapt[i].wb()) if d0.lazy[i]
+                [_LazyTap(t, d.adapt[i]) if d0.lazy[i]
                  else conv_chw(t, *d.adapt[i].wb(), k=1, use_kernels=uk)
                  for d, t in zip(decs, ts)], True))
         for bi, (i, j) in enumerate(d0.conns):
@@ -662,6 +697,8 @@ class ShardedMicroDecoder:
             if isinstance(e1.ts[0], _LazyTap) and fhw[0] == hw:
                 chain = ([t.x for t in e1.ts],
                          [[t.adapt, getattr(d, m1)[bi].wb()]
+                          for d, t in zip(decs, e1.ts)],
+                         [[t.packed, getattr(d, m1)[bi].wp]
                           for d, t in zip(decs, e1.ts)])
                 y = self._resize_any(agg(e2, m2), hw, shard, acc_chain=chain)
             else:
