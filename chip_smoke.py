@@ -19,15 +19,23 @@ Phases, each a hard failure (non-zero exit) when it fails:
 4. encoder: the folded arch0 encoder (seeded weights, BatchNorm
    perturbed and folded) stage by stage on the front's output for the
    seeded b8 frames: each of the 18 launches of the main path (stem
-   conv_chw, 13 inv_res_chw, 4 inv_res_s2_chw) against its plain twin on
-   the same input, bf16: >= 99 % of output elements bit-identical and
-   the worst error <= 1e-2 of max(|ref|, 1). The kernel's output feeds
-   the next stage. Then every stage in f32 at 2x128x256 (rtol = atol =
-   1e-4), and conv_chw's other forms and odd-sized blocks at small
-   shapes, f32 and bf16. Each launch is timed with its plain twin and a
-   cuDNN yardstick (F.conv2d with the folded weights: one call for the
-   stem, the three-call expand/dw/project sequence for a block, without
-   the activations and residual, since no one call computes a block).
+   conv_chw, 13 inv_res_chw, 4 inv_res_s2_chw, every served bf16 block
+   on the CUDA cores, whose sums give the twins' bits) against its plain
+   twin on the same input, bf16: >= 99 % of output elements
+   bit-identical and the worst error <= 1e-2 of max(|ref|, 1). Each block
+   is also run on the tensor-core kernel (inv_res_tc_chw, which no
+   serving path calls) and held to its twin at the same tolerance, which
+   that kernel's own f32 sum order needs. The served kernel's output
+   feeds the next stage. Then every stage in f32 at 2x128x256 (rtol =
+   atol = 1e-4), and conv_chw's other forms and odd-sized blocks at small
+   shapes, f32 and bf16 (bf16 on both kernels; Cin 24, and a stride-2
+   block on a shard's rows with its 2-row halo, whose rows must equal the
+   whole input's). Each launch is timed in turns with, for a block, the
+   tensor-core kernel, and a cuDNN yardstick (F.conv2d with the folded
+   weights: one call for the stem, the three-call expand/dw/project
+   sequence for a block, without the activations and residual, since no
+   one call computes a block), each over a ~25 ms window, and once with
+   its plain twin.
 5. decoder: the folded arch0 decoder on the kernels' taps of seeded b8
    1024x2048 frames, every kernel call recorded and replayed against its
    plain twin (bf16 as in phase 4; a cell_op_chw call node by node, each
@@ -41,7 +49,9 @@ Phases, each a hard failure (non-zero exit) when it fails:
    (pair_op_chw, pw_multi_chw) and the W-first tail on its logits. The
    bf16 taps and logits are held against the unfolded model run in f32
    through cuDNN (worst error <= 3 % of the largest tap value, <= 5 % of
-   the largest logit), and the kernels' masks agree with that run's at
+   the largest logit), the kernels' encoder taps are as close to that
+   run's (mean absolute error) as the plain twins' encoder's taps, within
+   ENC_TAPS_ALLOWANCE, and the kernels' masks agree with that run's at
    least as well as the plain twins' decoder's do, less 0.1 %. Then every
    decoder call in f32 at small shapes against its twin (1e-4) and its
    library version (1e-4 of the largest value), and the decoder kernels'
@@ -49,7 +59,9 @@ Phases, each a hard failure (non-zero exit) when it fails:
 6. slice: Segmenter for arch0, 19 classes, seeded weights with BatchNorm
    perturbed. predict_batch on 8 seeded 1024x2048 frames (the main
    path, launch counts reset just before and read just after, each
-   kernel's count checked: PATH_LAUNCHES) and predict on one 1000x1500
+   kernel's count checked: PATH_LAUNCHES, where the tensor-core inverted
+   residual has none; the encoder's route printed) and predict on one
+   1000x1500
    frame (the pad path, likewise) and on one 999x1501 frame (odd: no
    front kernel, the padded frame packed by space-to-depth on the
    device): masks against the same Segmenter run with use_kernels=False
@@ -64,7 +76,12 @@ Phases, each a hard failure (non-zero exit) when it fails:
    upsample_argmax_flat are read there.
 7. timing with CUDA events: each kernel, its plain version and one
    PyTorch library call computing the same function where there is
-   one, and predict_batch at b8 from a device-resident batch.
+   one, and predict_batch at b8 from a device-resident batch. The
+   encoder serves every block on the CUDA-core kernel (the slice masks
+   fall under MASK_FLOOR with any block shape on the tensor cores): the
+   engine is also run with the blocks of one shape at a time on the
+   tensor-core kernel (on_tensor_cores), then all of them, its masks
+   against the plain twins' printed, and the last timed.
 
 8. sharded: four logical shards on the one card (devices = [cuda:0] * 4,
    run one after another). upsample_argmax_sharded on the tail phase's
@@ -74,7 +91,8 @@ Phases, each a hard failure (non-zero exit) when it fails:
    frames (the sharded path: counts reset just before, read just after,
    SPACE_LAUNCHES): masks >= 99.9 % equal to the unsharded engine's
    (arch0's pool branch sums its mean per shard), encoder taps
-   bit-equal. Every kernel call of the sharded decoder on that path
+   bit-equal, and so with every block on the tensor cores (taps and the
+   data mode's masks). Every kernel call of the sharded decoder on that path
    (quarter-height windows with their halos, resize_chw's row-window
    form) is recorded and replayed against its plain twin as in phase 5,
    and the whole sharded call is run again on the plain twins
@@ -103,11 +121,14 @@ Phases, each a hard failure (non-zero exit) when it fails:
 Prints the kernels JSON line and the card's name and power limit, then,
 last, {"ok": true, "device": {...}}. Writes chiprun_out/chip_smoke.json.
 
---control BITS runs a control instead of the phases: the bf16 node and
-1x1 kernels' outputs rounded once more, to BITS significant bits, and
-the checks that hold those kernels at a tolerance (phase 5's calls and
-f32 reference, phase 6's arch0 and G2 masks, phase 8's shard logits) run
-on it. It exits 0 when every one of them fails.
+--control BITS runs a control instead of the phases: the bf16
+tensor-core node, 1x1 and inverted-residual kernels' outputs (cell.cu's
+node_tc_kernel, pointwise.cu's pw_tc_kernel, inv_res.cu's
+inv_res_tc_kernel) rounded once more, to BITS
+significant bits, and the checks that hold those kernels at a tolerance
+(phase 4's 17 block stages, phase 5's calls, encoder taps and f32
+reference, phase 6's arch0 and G2 masks, phase 8's shard logits) run on
+it. It exits 0 when every one of them fails.
 """
 
 from __future__ import annotations
@@ -314,8 +335,10 @@ def check_call(torch, name, fn, a, what):
 
 def encoder_stages(enc):
     """(kernel name, stage fn(x, use_kernels), cuDNN yardstick fn(x),
-    work fn(x) -> (bytes, dot flops, f32 flops)) for the stem and the
-    17 blocks of a FoldedMobileNetV2, in path order."""
+    work fn(x) -> (bytes, dot flops, f32 flops), tensor-core fn(x) or
+    None) for the stem and the 17 blocks of a FoldedMobileNetV2, in path
+    order. The stage fn is the served block (the CUDA-core kernel); the
+    last runs the block on the tensor-core kernel (``inv_res_tc_chw``)."""
     import torch.nn.functional as F
 
     def stem_lib(x):
@@ -324,7 +347,8 @@ def encoder_stages(enc):
                         padding=1)[..., :h, :w]
 
     stages = [("conv_chw", enc.stem, stem_lib,
-               lambda x: conv_work(x.shape, 32, 2, False, x.element_size()))]
+               lambda x: conv_work(x.shape, 32, 2, False, x.element_size()),
+               None)]
     for blk in enc.blocks:
         def lib(x, blk=blk):
             dt = x.dtype
@@ -339,45 +363,88 @@ def encoder_stages(enc):
                                 blk.w_proj.shape[0], blk.stride,
                                 blk.w_exp is not None, x.element_size())
         name = "inv_res_s2_chw" if blk.stride == 2 else "inv_res_chw"
-        stages.append((name, blk, lib, work))
+        stages.append((name, blk, lib, work, tc_block(blk)))
     return stages
+
+
+def tc_block(blk):
+    """fn(x, use_kernels=True): the folded block ``blk`` on the
+    tensor-core kernel (``inv_res_tc_chw``), its expand and project
+    weights packed once, here; the plain twin without kernels."""
+    from segtpu_torch.kernels.chw_ops import inv_res_tc_chw, pack_weights
+    packed = (None if blk.w_exp is None else pack_weights(blk.w_exp),
+              pack_weights(blk.w_proj))
+
+    def forward(x, use_kernels: bool = True):
+        if not use_kernels:
+            return type(blk).forward(blk, x, False)
+        return inv_res_tc_chw(x, blk.w_exp, blk.b_exp, blk.w_dw, blk.b_dw,
+                              blk.w_proj, blk.b_proj, stride=blk.stride,
+                              residual=blk.residual, packed=packed)
+    return forward
+
+
+def bound_ms(nbytes, dot, f32):
+    """(least ms, "bytes" or "operations") of one launch's work: as
+    ``bounds()``."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": max(dot / BF16_FLOP_PER_S,
+                               f32 / F32_FLOP_PER_S) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
 
 
 def phase_encoder(torch, img):
     """Phase 4 (see the module doc). Returns per-kernel sums over the
-    main path's launches (worst abs error, kernel/plain/library ms,
-    bytes and operations) and each launch's times."""
+    main path's launches (worst abs error, kernel/plain/library ms and,
+    for the blocks, the tensor-core and CUDA-core kernels' ms, bytes and
+    operations) and each launch's times."""
     from segtpu_torch.kernels.front import normalize_s2d_front
     from segtpu_torch.models.fast_encoder import fold_encoder
+    from segtpu_torch.scripts import cuda_ms as adaptive_ms, turns_ms
     model = make_model(torch)
     names = ("conv_chw", "inv_res_chw", "inv_res_s2_chw")
     res = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
                    bytes=0, dot=0, f32=0, n=0) for n in names}
+    for n in names[1:]:
+        res[n].update(tc_ms=0.0, tc_max_abs_err=0.0)
     enc = fold_encoder(model.encoder, torch.bfloat16).to("cuda")
     y = normalize_s2d_front(img)
     stage_ms = []
     with torch.inference_mode():
-        for i, (name, fn, lib, work) in enumerate(encoder_stages(enc)):
+        for i, (name, fn, lib, work, tc) in enumerate(encoder_stages(enc)):
+            what = f"stage {i:2d} {name} {tuple(y.shape)}"
             got = fn(y, True)
             want = fn(y, False)
             torch.cuda.synchronize()
             r = res[name]
-            r["max_abs_err"] = max(r["max_abs_err"], _compare(
-                torch, got, want, f"stage {i:2d} {name} {tuple(y.shape)}"))
-            ms = cuda_ms(lambda: fn(y, True), 5)
-            plain_ms = cuda_ms(lambda: fn(y, False), 2, warmup=1)
-            lib_ms = cuda_ms(lambda: lib(y), 5)
-            print(f"[timing] stage {i:2d} {name} {tuple(y.shape)}: {ms:.4f} ms"
-                  f", plain {plain_ms:.4f} ms, cuDNN yardstick {lib_ms:.4f} ms")
-            stage_ms.append((name, list(y.shape), ms, plain_ms, lib_ms))
-            r["ms"] += ms
-            r["plain_ms"] += plain_ms
-            r["library_ms"] += lib_ms
+            r["max_abs_err"] = max(r["max_abs_err"],
+                                   _compare(torch, got, want, what))
+            arms = {"ms": lambda: fn(y, True), "lib": lambda: lib(y)}
+            if tc is not None:
+                # the tensor-core kernel, which no serving path calls
+                r["tc_max_abs_err"] = max(r["tc_max_abs_err"], _compare(
+                    torch, tc(y), want, f"{what} tensor cores"))
+                arms["tc"] = lambda: tc(y)
+            # the kernels and cuDNN in turns, each over a ~25 ms window
+            t = turns_ms(arms, adaptive_ms)
+            ms, lib_ms = t["ms"], t["lib"]
+            plain_ms = cuda_ms(lambda: fn(y, False), 1, warmup=1)
             nbytes, dot, f32 = work(y)
-            r["bytes"] += nbytes
-            r["dot"] += dot
-            r["f32"] += f32
-            r["n"] += 1
+            bms, by = bound_ms(nbytes, dot, f32)
+            print(f"[timing] {what}: {ms:.4f} ms"
+                  + (f" (CUDA cores; tensor cores {t['tc']:.4f} ms)"
+                     if tc else "")
+                  + f", plain {plain_ms:.4f} ms, cuDNN yardstick "
+                  f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+            stage_ms.append((name, list(y.shape), ms, plain_ms, lib_ms,
+                             t.get("tc"), bms))
+            for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                           ("library_ms", lib_ms), ("tc_ms", t.get("tc")),
+                           ("bytes", nbytes), ("dot", dot), ("f32", f32),
+                           ("n", 1)):
+                if v is not None:
+                    r[key] += v
             y = got
         check([res[n]["n"] for n in names] == [1, 13, 4],
               f"encoder stage counts {[res[n]['n'] for n in names]}")
@@ -386,7 +453,7 @@ def phase_encoder(torch, img):
         enc32 = fold_encoder(model.encoder, torch.float32).to("cuda")
         y = normalize_s2d_front(img[:2, :128, :256].contiguous(),
                                 out_dtype=torch.float32)
-        for i, (name, fn, _, _) in enumerate(encoder_stages(enc32)):
+        for i, (name, fn, *_) in enumerate(encoder_stages(enc32)):
             got = fn(y, True)
             _compare(torch, got, fn(y, False), f"f32 stage {i:2d} {name}")
             y = got
@@ -398,8 +465,15 @@ def phase_kernel_forms(torch):
     """conv_chw's decoder forms and inverted residuals at odd sizes
     (tiles cut by the image edge), small shapes, f32 and bf16."""
     from segtpu_torch.kernels.chw_ops import (conv_chw, inv_res_chw,
-                                              inv_res_s2_chw)
+                                              inv_res_s2_chw, inv_res_tc_chw)
     g = torch.Generator(device="cuda").manual_seed(4)
+
+    def block(x, *ws, stride, residual=False, tc=False):
+        if tc:
+            return inv_res_tc_chw(x, *ws, stride=stride, residual=residual)
+        if stride == 2:
+            return inv_res_s2_chw(x, *ws)
+        return inv_res_chw(x, *ws, residual=residual)
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device="cuda") * scale
@@ -435,6 +509,7 @@ def phase_kernel_forms(torch):
         (2, 32, 1, 16, False, 14, 22),
         (2, 96, 6, 160, False, 10, 6),
         (1, 160, 6, 320, False, 3, 5),
+        (1, 24, 6, 24, True, 13, 21),      # Cin 24: K padded to 32
     ]
     for stride, cin, t, cout, residual, h, w in block_cases:
         cmid = cin * t
@@ -443,19 +518,40 @@ def phase_kernel_forms(torch):
             rnd(cmid, 1, 3, 3, scale=0.3), rnd(cmid, scale=0.1),
             rnd(cout, cmid, 1, 1, scale=0.1), rnd(cout, scale=0.1))
         x = rnd(2, cin, h, w)
-        for dt in (torch.float32, torch.bfloat16):
+        # f32 on the CUDA cores; bf16 on each kernel
+        for dt, tc in ((torch.float32, False), (torch.bfloat16, True),
+                       (torch.bfloat16, False)):
             ws = tuple(None if v is None else
                        (v.to(dt) if j in (0, 4) else v)
                        for j, v in enumerate(wts))
-            if stride == 2:
-                got = inv_res_s2_chw(x.to(dt), *ws)
-                want = inv_res_s2_chw(x.to(dt), *ws, use_kernels=False)
-            else:
-                got = inv_res_chw(x.to(dt), *ws, residual=residual)
-                want = inv_res_chw(x.to(dt), *ws, residual=residual,
-                                   use_kernels=False)
+            got = block(x.to(dt), *ws, stride=stride, residual=residual,
+                        tc=tc)
+            want = (inv_res_s2_chw(x.to(dt), *ws, use_kernels=False)
+                    if stride == 2 else
+                    inv_res_chw(x.to(dt), *ws, residual=residual,
+                                use_kernels=False))
             _compare(torch, got, want, f"inv_res s{stride} {cin}x{t}->{cout} "
-                     f"res={residual} {h}x{w} {dt}")
+                     f"res={residual} {h}x{w} {dt}"
+                     + (" tensor cores" if tc else " CUDA cores"))
+    # a stride-2 block on a shard's rows as mbv2_chw_sharded feeds it: the
+    # rows 16..35 of a 36-row input with 2 halo rows above; its output
+    # rows but the first are the whole input's rows 8..17, bit for bit
+    wts = (rnd(192, 32, 1, 1, scale=0.2), rnd(192, scale=0.1),
+           rnd(192, 1, 3, 3, scale=0.3), rnd(192, scale=0.1),
+           rnd(64, 192, 1, 1, scale=0.1), rnd(64, scale=0.1))
+    x = rnd(2, 32, 36, 32)
+    for dt, tc in ((torch.float32, False), (torch.bfloat16, True),
+                   (torch.bfloat16, False)):
+        ws = tuple(v.to(dt) if j in (0, 4) else v for j, v in enumerate(wts))
+        whole = block(x.to(dt), *ws, stride=2, tc=tc)
+        part = x[:, :, 14:].to(dt).contiguous()
+        got = block(part, *ws, stride=2, tc=tc)
+        what = (f"inv_res s2 32x6->64 shard rows 14..35 {dt} "
+                + ("tensor cores" if tc else "CUDA cores"))
+        _compare(torch, got, inv_res_s2_chw(part, *ws, use_kernels=False),
+                 what)
+        check(torch.equal(got[:, :, 1:], whole[:, :, 8:]),
+              f"{what}: rows differ from the whole input's rows")
 
 
 DECODER_KERNELS = ("conv_chw", "pw_chain_chw", "pw_multi_chw",
@@ -730,14 +826,15 @@ def phase_decoder(torch, res):
                 print(f"[timing] {path} call {i:2d} {name} {shape}: "
                       f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
                       f"{lib_ms:.4f} ms")
-                stage_ms.append((path, name, list(shape), ms, plain_ms,
-                                 lib_ms))
                 nb, dot, f32 = call_work(name, a, got)
+                stage_ms.append((path, name, list(shape), ms, plain_ms,
+                                 lib_ms, bound_ms(nb, dot, f32)[0]))
                 for key, v in (("ms", ms), ("plain_ms", plain_ms),
                                ("library_ms", lib_ms), ("bytes", nb),
                                ("dot", dot), ("f32", f32), ("n", 1)):
                     r[key] += v
         if path == "main":
+            check_encoder_reference(torch, model, dec, img)
             check_library_reference(torch, model, dec, img, taps, logits)
         else:
             flat_tail(torch, logits, res["upsample_argmax_flat"], stage_ms)
@@ -865,6 +962,56 @@ def phase_decoder_forms(torch):
             _compare(torch, fn(True), fn(False), f"{what} {dt}")
 
 
+# the tensor-core encoder's taps may be this share further (mean absolute
+# error) from the f32 cuDNN run than the plain twins' encoder's taps: the
+# two differ by the f32 order of the blocks' sums alone
+ENC_TAPS_ALLOWANCE = 0.02
+
+
+def check_encoder_reference(torch, model, dec, img):
+    """The bf16 encoder with every block on the tensor cores, and the
+    plain twins' encoder, on the frames ``img``, against the unfolded
+    encoder run in f32 through cuDNN (no TF32): for each tap the tensor
+    cores' mean absolute error is at most (1 + ENC_TAPS_ALLOWANCE) times
+    the twins'. Then the masks of the kernels' decoder ``dec`` on each of
+    the two encoders' taps against the f32 model's: the tensor-core
+    encoder's agree with them at least as well as the twins' encoder's,
+    less 0.1 %."""
+    from segtpu_torch.kernels.front import normalize_s2d_front
+    from segtpu_torch.kernels.upsample_argmax import upsample_argmax
+    from segtpu_torch.models.fast_encoder import fold_encoder
+    enc = fold_encoder(model.encoder, torch.bfloat16).to("cuda")
+    m32 = model.to("cuda").float().eval()
+    hw = tuple(img.shape[1:3])
+    try:
+        with torch.inference_mode():
+            x12 = normalize_s2d_front(img)
+            with on_tensor_cores(enc):
+                taps = enc(x12)
+            twins = enc(x12, use_kernels=False)
+            taps32 = m32.encoder(normalize_s2d_front(
+                img, out_dtype=torch.float32), input_format="s2d12")
+            for i, (tk, tt, t32) in enumerate(zip(taps, twins, taps32)):
+                ek, et = ((t.float() - t32).abs().mean().item()
+                          for t in (tk, tt))
+                print(f"[encoder] tap {i} {tuple(tk.shape)} mean abs error vs "
+                      f"f32: tensor cores {ek!r}, plain twins {et!r}, ratio "
+                      f"{ek / et!r} (allowed {1 + ENC_TAPS_ALLOWANCE})")
+                check(ek <= et * (1 + ENC_TAPS_ALLOWANCE),
+                      f"encoder tap {i}: the tensor cores' taps are {ek} from "
+                      f"the f32 run, the twins' {et}")
+            m_f32 = upsample_argmax(m32.decoder(taps32), hw)
+            agree = [(upsample_argmax(dec(t), hw) == m_f32).float().mean()
+                     .item() for t in (taps, twins)]
+    finally:
+        model.to("cpu")
+    print(f"[encoder] masks vs the f32 reference, the kernels' decoder on "
+          f"the tensor-core encoder's taps {agree[0]!r}, on the plain twins' "
+          f"encoder's {agree[1]!r}")
+    check(agree[0] >= agree[1] - 1e-3, f"the tensor-core encoder's masks "
+          f"agree {agree[0]} with the f32 reference, the twins' {agree[1]}")
+
+
 def check_library_reference(torch, model, dec, img, taps, logits):
     """The bf16 kernels' taps and logits on the b8 frames against the
     unfolded model run in f32 through cuDNN (no TF32), an implementation
@@ -952,6 +1099,17 @@ def tie_gaps(torch, ref, x):
     return torch.cat(gaps)
 
 
+def mask_stats(torch, got, want, gaps):
+    """(share of pixels equal, pixels that differ off near-ties of the
+    twins' logits, the widest top-2 gap of a pixel that differs)."""
+    got, want = (torch.as_tensor(m).to(gaps.device) for m in (got, want))
+    diff = got != want
+    rate = 1.0 - diff.float().mean().item()
+    off = int((diff & (gaps > NEAR_TIE)).sum().item())
+    widest = gaps[diff].max().item() if bool(diff.any()) else 0.0
+    return rate, off, widest
+
+
 def masks_hold(torch, got, want, gaps, floor, what):
     """The slice rule, masks of the kernels against the plain twins': at
     least ``floor`` of the pixels equal, and every pixel that differs a
@@ -959,11 +1117,7 @@ def masks_hold(torch, got, want, gaps, floor, what):
     another f32 order than the twins', and a rounding apart at one node
     moves its neighbours' sums; through the decoder's chained nodes that
     flips classes where two logits nearly tie). Returns the agreement."""
-    got, want = (torch.as_tensor(m).to(gaps.device) for m in (got, want))
-    diff = got != want
-    rate = 1.0 - diff.float().mean().item()
-    off = int((diff & (gaps > NEAR_TIE)).sum().item())
-    widest = gaps[diff].max().item() if bool(diff.any()) else 0.0
+    rate, off, widest = mask_stats(torch, got, want, gaps)
     print(f"[slice] {what}: agreement={rate!r} (floor {floor}) near-ties="
           f"{(gaps <= NEAR_TIE).float().mean().item()!r} widest gap of a "
           f"mismatch={widest!r} mismatches off near-ties={off}")
@@ -991,8 +1145,10 @@ EXPERIMENT_KERNELS = {
     "ab_normalize": ("normalize_s2d_nhwc",),
     "exp_tail_flat": ("clf_upsample_argmax",)}
 EXPERIMENT_ONLY = {n: 0 for ks in EXPERIMENT_KERNELS.values() for n in ks}
-PATH_LAUNCHES.update(EXPERIMENT_ONLY)
-G2_LAUNCHES.update(EXPERIMENT_ONLY)
+# the tensor-core inverted residual: no serving path launches it either
+TC_ONLY = {"inv_res_tc_chw": 0}
+PATH_LAUNCHES.update(EXPERIMENT_ONLY, **TC_ONLY)
+G2_LAUNCHES.update(EXPERIMENT_ONLY, **TC_ONLY)
 # one b8 1024x2048 call over N_SHARDS logical shards: all three decoder
 # blocks shard, so every kernel of the unsharded path runs once per shard,
 # the fused cell suffix as one cell_op_chw call per node (3 blocks x 3 nodes)
@@ -1002,7 +1158,7 @@ SPACE_LAUNCHES = {"front": 4, "conv_chw": 16, "inv_res_chw": 52,
                   "sep_conv_chw": 12, "pair_op_chw": 0, "cell_op_chw": 36,
                   "resize_chw": 12, "upsample_argmax": 0,
                   "upsample_argmax_flat": 0, "upsample_argmax_sharded": 4,
-                  **EXPERIMENT_ONLY}
+                  **EXPERIMENT_ONLY, **TC_ONLY}
 DATA_LAUNCHES = {n: N_SHARDS * v for n, v in PATH_LAUNCHES.items()}
 # arch0 without its pool branch: halos of 12 rows and no re-associated sum
 NO_POOL = [[2, [0, 1, 3, 9], [2, 0, 5, 2], [1, 3, 8, 0]],
@@ -1016,8 +1172,9 @@ def kernel_wrappers():
     from segtpu_torch.kernels.upsample_argmax import (
         upsample_argmax, upsample_argmax_flat, upsample_argmax_sharded)
     out = {"front": normalize_s2d_front}
-    for n in ("conv_chw", "inv_res_chw", "inv_res_s2_chw", "pw_chain_chw",
-              "pw_multi_chw", "sep_conv_chw", "pair_op_chw", "cell_op_chw"):
+    for n in ("conv_chw", "inv_res_chw", "inv_res_s2_chw", "inv_res_tc_chw",
+              "pw_chain_chw", "pw_multi_chw", "sep_conv_chw", "pair_op_chw",
+              "cell_op_chw"):
         out[n] = getattr(chw_ops, n)
     out.update(resize_chw=resize_chw, upsample_argmax=upsample_argmax,
                upsample_argmax_flat=upsample_argmax_flat,
@@ -1055,6 +1212,9 @@ def phase_slice(torch):
     launches = read_counts()
     print(f"[slice] predict_batch b8 {H}x{W}: launches={launches} "
           f"first call {cold_s:.2f} s")
+    print("[slice] encoder route: all 17 blocks on inv_res_kernel (CUDA "
+          "cores), none on inv_res_tc_kernel (on the tensor cores, with any "
+          "block shape, arch0's masks fall under MASK_FLOOR: phase 7)")
     check(all(launches[n] > 0 for n, v in PATH_LAUNCHES.items() if v),
           f"a kernel of the main path was not launched: {launches}")
     check(launches == PATH_LAUNCHES,
@@ -1140,7 +1300,45 @@ def phase_slice(torch):
     return seg, ref, frames, launches, rate, masks, gaps
 
 
-def phase_timing(torch, img, logits, seg, ref, frames):
+def tensor_core_encoder(torch, seg, ref, frames, gaps):
+    """The engine with encoder blocks on the tensor-core kernel
+    (``on_tensor_cores``), which no serving path runs: first the blocks of
+    one shape at a time, then every block; the masks against the plain
+    twins' (printed, the measurement behind serving every block on the
+    CUDA cores: MASK_FLOOR holds the served route, and phase 5's
+    check_encoder_reference holds this one against an f32 run), the
+    launches (every block on inv_res_tc_kernel) and the ms of a b8
+    predict_batch with every block on the tensor cores."""
+    shapes = [(blk.w_dw.shape[0] if blk.w_exp is None
+               else blk.w_exp.shape[1], blk.w_dw.shape[0],
+               blk.w_proj.shape[0], blk.stride) for blk in seg.encoder.blocks]
+    want = ref.predict_batch(frames)
+    for shape in dict.fromkeys(shapes):
+        with on_tensor_cores(seg.encoder, {i for i, s in enumerate(shapes)
+                                           if s == shape}):
+            rate, off, widest = mask_stats(torch, seg.predict_batch(frames),
+                                           want, gaps)
+        print(f"[timing] tensor cores on the {shape} blocks alone: b8 "
+              f"masks vs use_kernels=False: agreement={rate!r} mismatches "
+              f"off near-ties={off} widest gap={widest!r}")
+    with on_tensor_cores(seg.encoder):
+        reset_counts()
+        masks = seg.predict_batch(frames)
+        tc = {n: read_counts()[n] for n in ("inv_res_tc_chw", "inv_res_chw",
+                                            "inv_res_s2_chw")}
+        check(tc == {"inv_res_tc_chw": 17, "inv_res_chw": 0,
+                     "inv_res_s2_chw": 0},
+              f"tensor-core encoder launches {tc}")
+        rate, off, widest = mask_stats(torch, masks, want, gaps)
+        print(f"[timing] tensor-core encoder: launches {tc}; b8 masks vs "
+              f"use_kernels=False: agreement={rate!r} (the served route's "
+              f"floor {MASK_FLOOR['arch0']}) mismatches off near-ties={off} "
+              f"widest gap={widest!r}")
+        x = torch.from_numpy(frames).cuda()
+        return cuda_ms(lambda: seg.predict_batch(x), 10)
+
+
+def phase_timing(torch, img, logits, seg, ref, frames, gaps):
     import torch.nn.functional as F
     from segtpu_torch.kernels.front import (normalize_s2d_front,
                                             normalize_s2d_front_plain)
@@ -1157,6 +1355,8 @@ def phase_timing(torch, img, logits, seg, ref, frames):
     x = torch.from_numpy(frames).cuda()
     t["slice_b8"] = cuda_ms(lambda: seg.predict_batch(x), 10)
     t["slice_b8_plain_kernels"] = cuda_ms(lambda: ref.predict_batch(x), 5)
+    t["slice_b8_tensor_core_encoder"] = tensor_core_encoder(
+        torch, seg, ref, frames, gaps)
     for k, v in t.items():
         print(f"[timing] {k}: {v:.4f} ms")
     print(f"[timing] slice b8: {N * 1000.0 / t['slice_b8']:.1f} images/s "
@@ -1277,7 +1477,25 @@ def phase_sharded(torch, seg, ref, frames, masks, gaps, t):
         check(torch.equal(torch.cat(tap, dim=2), whole),
               f"sharded encoder tap {i} differs from the unsharded tap")
     print("[sharded] arch0 encoder taps: 4 bit-equal")
-    del want_taps
+    # the tensor-core encoder (not the served route): its taps and the
+    # data-mode masks bit-equal too, the plan changing with the rows
+    with on_tensor_cores(seg.encoder):
+        with torch.inference_mode():
+            want_tc = seg.encoder(normalize_s2d_front(x))
+            for i, (tap, whole) in enumerate(zip(
+                    sh.infer_shards(x, return_taps=True), want_tc)):
+                check(torch.equal(torch.cat(tap, dim=2), whole),
+                      f"sharded tensor-core encoder tap {i} differs from the "
+                      f"unsharded tap")
+        data_tc = make_sharded_infer_fn(seg, make_mesh(n, 1, devices=devices),
+                                        mode="data")
+        check(torch.equal(data_tc(x), torch.as_tensor(
+            seg.predict_batch(frames)).to(x.device)),
+              "tensor-core encoder: data-mode masks differ from the "
+              "unsharded engine's")
+    print("[sharded] tensor-core encoder: 4 space taps and the data-mode "
+          "masks bit-equal to the unsharded engine's")
+    del want_taps, want_tc
 
     # every launch of the sharded decoder against its twin at this path's
     # shapes: windows of H/n rows plus halo, resize_chw with shard=(s, n, h)
@@ -1592,30 +1810,51 @@ SCRIPT_OF = {n: s for s, ns in EXPERIMENT_KERNELS.items() for n in ns}
 
 @contextlib.contextmanager
 def coarse_decoder(torch, bits: int):
-    """A control: the bf16 node and 1x1 kernels (``cell.cu``,
-    ``pointwise.cu``) made wrong on purpose, each output rounded once more
-    to ``bits`` significant bits (bf16 keeps 8): up to 2^-bits of the
-    value, on about half the elements at bits = 7, where the tensor-core
-    kernels differ from their twins by one rounding on a few elements in
-    ten thousand."""
+    """A control: the bf16 node, 1x1 and inverted-residual kernels
+    (``cell.cu``, ``pointwise.cu``, ``inv_res.cu``) made wrong on purpose,
+    each output rounded once more to ``bits`` significant bits (bf16
+    keeps 8): up to 2^-bits of the value, on about half the elements at
+    bits = 7, where the tensor-core kernels differ from their twins by
+    one rounding on a few elements in a thousand."""
     from segtpu_torch.kernels import chw_ops
-    saved = chw_ops._node_launch, chw_ops._pw_launch
+    names = ("_node_launch", "_pw_launch", "_inv_res_tc_launch")
+    saved = [getattr(chw_ops, n) for n in names]
+
+    def coarsen(out):
+        if out.dtype == torch.bfloat16:
+            m, e = torch.frexp(out.float())
+            out.copy_(torch.ldexp(torch.round(m * 2.0 ** bits)
+                                  / 2.0 ** bits, e))
+        return out
 
     def coarse(launch):
         def run(*args, **kw):
-            out = launch(*args, **kw)
-            if out.dtype == torch.bfloat16:
-                m, e = torch.frexp(out.float())
-                out.copy_(torch.ldexp(torch.round(m * 2.0 ** bits)
-                                      / 2.0 ** bits, e))
-            return out
+            return coarsen(launch(*args, **kw))
         return run
 
-    chw_ops._node_launch, chw_ops._pw_launch = map(coarse, saved)
+    for n, f in zip(names, saved):
+        setattr(chw_ops, n, coarse(f))
     try:
         yield
     finally:
-        chw_ops._node_launch, chw_ops._pw_launch = saved
+        for n, f in zip(names, saved):
+            setattr(chw_ops, n, f)
+
+
+@contextlib.contextmanager
+def on_tensor_cores(enc, blocks=None):
+    """Every block of the folded bf16 encoder ``enc`` (or those of the
+    indices ``blocks``) on the tensor-core kernel (``tc_block``), until the
+    context ends; the rest, and every block without kernels, as served."""
+    chosen = [blk for i, blk in enumerate(enc.blocks)
+              if blocks is None or i in blocks]
+    for blk in chosen:
+        blk.forward = tc_block(blk)
+    try:
+        yield
+    finally:
+        for blk in chosen:
+            del blk.forward
 
 
 def must_fail(what, fn) -> bool:
@@ -1635,10 +1874,30 @@ def phase_control(torch, bits: int) -> dict:
     fail. Returns {check: failed}."""
     from segtpu_torch.engine import Segmenter, ShardedSegmenter
     from segtpu_torch.models import ARCHS
+    from segtpu_torch.kernels.front import normalize_s2d_front
+    from segtpu_torch.models.fast_encoder import fold_encoder
     res = {}
     with coarse_decoder(torch, bits):
+        # phase 4's block stages on phase 2's frames, each fed the last
+        g = torch.Generator(device="cuda").manual_seed(1)
+        img = torch.randint(0, 256, (N, H, W, 3), generator=g, device="cuda",
+                            dtype=torch.uint8)
+        enc = fold_encoder(make_model(torch).encoder,
+                           torch.bfloat16).to("cuda")
+        y = normalize_s2d_front(img)
+        with torch.inference_mode():
+            for i, (name, fn, _, _, tc) in enumerate(encoder_stages(enc)):
+                if tc is not None:
+                    res[f"stage {i:2d} {name} tensor cores vs its twin"] = \
+                        must_fail(f"stage {i:2d} {name}", lambda: _compare(
+                            torch, tc(y), fn(y, False), f"stage {i}"))
+                y = fn(y, True)
+        del enc, y, img
         model, dec, img, taps, logits, calls = decoder_calls(
             torch, ARCHS["arch0"], (H, W), torch.bfloat16, N)
+        res["tensor-core encoder vs the f32 cuDNN run, against the twins'"] = \
+            must_fail("tensor-core encoder", lambda: check_encoder_reference(
+                torch, model, dec, img))
         with torch.inference_mode():
             for i, (name, fn, a) in enumerate(calls):
                 if name in ("sep_conv_chw", "cell_op_chw", "pw_chain_chw"):
@@ -1701,7 +1960,7 @@ def main() -> None:
     work, stage_ms = phase_encoder(torch, img)
     dec_ms = phase_decoder(torch, work)
     seg, ref, frames, launches, _, masks, gaps = phase_slice(torch)
-    t = phase_timing(torch, img, logits, seg, ref, frames)
+    t = phase_timing(torch, img, logits, seg, ref, frames, gaps)
     work["upsample_argmax_sharded"] = sharded_tail(torch, logits)
     space_launches, space_rate = phase_sharded(torch, seg, ref, frames, masks,
                                                gaps, t)
@@ -1710,11 +1969,25 @@ def main() -> None:
     launches.update(exp_launches)
     work.update(exp_work)
     for name, r in work.items():
-        for key in ("ms", "plain_ms", "library_ms"):
-            t[f"{name}_{key}_path_sum"] = r[key]
+        for key in ("ms", "plain_ms", "library_ms", "tc_ms"):
+            if key in r:
+                t[f"{name}_{key}_path_sum"] = r[key]
         print(f"[timing] {name} over its {r['n']} measured launches: "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']!r} ms")
+              f"library {r['library_ms']!r} ms"
+              + (f" (CUDA cores; tensor cores {r['tc_ms']:.4f} ms)"
+                 if "tc_ms" in r else ""))
+    # conv_chw's launches split: the stem (phase 4) and the decoder's 1x1s
+    dec_conv = [c for c in dec_ms if c[0] == "main" and c[1] == "conv_chw"]
+    t["conv_chw_split"] = {
+        "stem": {"ms": stage_ms[0][2], "plain_ms": stage_ms[0][3],
+                 "library_ms": stage_ms[0][4], "bound_ms": stage_ms[0][6]},
+        "decoder_1x1": {"n": len(dec_conv),
+                        "ms": sum(c[3] for c in dec_conv),
+                        "plain_ms": sum(c[4] for c in dec_conv),
+                        "library_ms": sum(c[5] for c in dec_conv),
+                        "bound_ms": sum(c[6] for c in dec_conv)}}
+    print(f"[timing] conv_chw split: {t['conv_chw_split']}")
     b = bounds(work)
     work["front"] = dict(max_abs_err=front_err, ms=t["front"],
                          plain_ms=t["front_plain"], library_ms=None)
@@ -1733,7 +2006,10 @@ def main() -> None:
             else "main b8 1024x2048",
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b[name][0],
-            "bound_by": b[name][1], "library_ms": r["library_ms"]})
+            "bound_by": b[name][1], "library_ms": r["library_ms"],
+            **({"tensor_cores_ms": r["tc_ms"],
+                "tensor_cores_max_abs_err": r["tc_max_abs_err"]}
+               if "tc_ms" in r else {})})
     if "--profile" in sys.argv[1:]:
         profile(torch, seg, frames)
     gpu = gpu_line()
@@ -1757,22 +2033,30 @@ def main() -> None:
 
 def profile(torch, seg, frames):
     """Device time by kernel over two b8 calls of the unsharded engine,
-    then of the space-sharded one (N_SHARDS logical shards), each beside
-    the calls' time on the host's clock."""
+    of the same with every encoder block on the tensor cores, then of the
+    space-sharded one (N_SHARDS logical shards), each beside the calls'
+    time on the host's clock."""
     from torch.profiler import ProfilerActivity, profile as prof
     from segtpu_torch.engine import ShardedSegmenter
     x = torch.from_numpy(frames).cuda()
     sharded = ShardedSegmenter(seg, [torch.device("cuda", 0)] * N_SHARDS)
-    for what, fn in (("unsharded", seg.predict_batch),
-                     (f"space n={N_SHARDS}", sharded.predict)):
-        fn(x)
-        torch.cuda.synchronize()
-        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-            t0 = time.perf_counter()
-            for _ in range(2):
-                fn(x)
+
+    for what, fn, ctx in (
+            ("unsharded", seg.predict_batch, contextlib.nullcontext()),
+            ("unsharded, tensor-core encoder", seg.predict_batch,
+             on_tensor_cores(seg.encoder)),
+            (f"space n={N_SHARDS}", sharded.predict,
+             contextlib.nullcontext())):
+        with ctx:
+            fn(x)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+            with prof(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as p:
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    fn(x)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
         avgs = p.key_averages()
         # kernels only: an operator's row repeats its kernels' time
         dev_ms = sum(getattr(e, "self_device_time_total", None)

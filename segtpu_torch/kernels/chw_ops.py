@@ -57,6 +57,14 @@ depend on tiling, sharding or batching. Their weights are packed by
 the wrappers (``packed=``, a branch's ``"wp"``); their tiles and shared
 memory are planned by ``node_plan`` and ``pw_plan``, which mirror the
 sources' layouts.
+
+The inverted residual has such a kernel too, ``inv_res.cu``'s
+``inv_res_tc_kernel`` (bf16, planned by ``inv_res_tc_plan``), behind its
+own entry ``inv_res_tc_chw``. No serving path calls it: through the
+encoder's 17 blocks its sum order moves arch0's masks further from the
+twins' than the slice checks allow, so ``inv_res_chw`` and
+``inv_res_s2_chw`` run the CUDA-core kernel, bf16 and f32, and keep
+their twins' bits.
 """
 
 from __future__ import annotations
@@ -309,8 +317,9 @@ _TILES = sorted(((th, tw) for th in (8, 4, 2, 1) for tw in (32, 16, 8, 4)),
                 key=lambda t: (-t[0] * t[1], -t[1]))
 
 # (cin, cmid, cout, stride) -> (th, tw, mc): the fastest of every tile that
-# fits, measured by ``python3 -m segtpu_torch.kernels.inv_res_sweep`` at the
-# MobileNet-v2 blocks of a bf16 b8 1024x2048 batch on an H100 (PERF.md)
+# fits, measured by ``python3 -m segtpu_torch.kernels.inv_res_sweep --kernel
+# cuda_cores`` at the MobileNet-v2 blocks of a bf16 b8 1024x2048 batch on an
+# H100 (PERF.md)
 _MEASURED_TILES = {
     (32, 32, 16, 1): (8, 16, 16), (16, 96, 24, 2): (8, 16, 8),
     (24, 144, 24, 1): (8, 16, 16), (24, 144, 32, 2): (4, 16, 16),
@@ -418,24 +427,53 @@ def inv_res_s2_chw_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj):
                           stride=2, residual=False)
 
 
-def _inv_res_launch(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
-                    stride: int, residual: bool, what: str, tile=None):
-    b, cin, cmid, cout, h, w = _inv_res_geometry(
-        x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, stride, residual, what)
-    if cmid % 4 or cout % 4:
+def _inv_res_packed(packed, w_exp, w_proj, what):
+    """``packed`` (None, or (pack_weights(w_exp) or None, pack_weights(
+    w_proj))) checked against the block's weights; a pair."""
+    if packed is None:
+        return None, None
+    if len(packed) != 2:
+        raise ValueError(f"{what}: packed is (expand, project), got "
+                         f"{len(packed)} weights")
+    pe, pp = packed
+    if w_exp is None and pe is not None:
+        raise ValueError(f"{what}: a packed expand weight for a block "
+                         f"without an expand")
+    if w_exp is not None:
+        _check_packed(pe, tuple(w_exp.shape), what)
+    _check_packed(pp, tuple(w_proj.shape), what)
+    return pe, pp
+
+
+def _inv_res_kernel_args(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj,
+                         stride, residual, what):
+    """The block's geometry checked for either kernel: (b, cin, cmid,
+    cout, h, w) and the f32 biases and depthwise weight on x's device."""
+    geo = _inv_res_geometry(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj,
+                            stride, residual, what)
+    if geo[2] % 4 or geo[3] % 4:
         raise ValueError(f"{what} kernel needs the mid and output widths "
-                         f"in multiples of 4, got {cmid}, {cout}")
+                         f"in multiples of 4, got {geo[2]}, {geo[3]}")
     if not x.is_contiguous():
         raise ValueError(f"{what} kernel needs a contiguous x")
     dev = x.device
-    we, be = _on(w_exp, x.dtype, dev), _on(b_exp, torch.float32, dev)
-    wd, bd = _on(w_dw, torch.float32, dev), _on(b_dw, torch.float32, dev)
-    wp, bp = _on(w_proj, x.dtype, dev), _on(b_proj, torch.float32, dev)
-    ho, wo = h // stride, w // stride
-    elt = x.element_size()
-    th, tw, mc = tile or inv_res_tile(cin, cmid, cout, ho, wo, stride, elt,
+    return geo, tuple(_on(v, torch.float32, dev)
+                      for v in (b_exp, w_dw, b_dw, b_proj))
+
+
+def _inv_res_launch(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
+                    stride: int, residual: bool, what: str, tile=None):
+    """``inv_res_kernel`` (CUDA cores, bf16 or f32) on a CUDA tensor;
+    ``tile`` (th, tw, mc), else ``inv_res_tile``'s."""
+    (b, cin, cmid, cout, h, w), (be, wd, bd, bp) = _inv_res_kernel_args(
+        x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, stride, residual, what)
+    dev = x.device
+    we, wp = _on(w_exp, x.dtype, dev), _on(w_proj, x.dtype, dev)
+    th, tw, mc = tile or inv_res_tile(cin, cmid, cout, h // stride,
+                                      w // stride, stride, x.element_size(),
                                       b, sm_count=_sm_count(dev))
-    out = torch.empty((b, cout, ho, wo), dtype=x.dtype, device=dev)
+    out = torch.empty((b, cout, h // stride, w // stride), dtype=x.dtype,
+                      device=dev)
     from segtpu_torch.kernels._build import load
     fn = load("inv_res").segtpu_inv_res
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [
@@ -452,13 +490,48 @@ def _inv_res_launch(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
     return out
 
 
+def _inv_res_tc_launch(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
+                       stride: int, residual: bool, what: str, tile=None,
+                       packed=(None, None)):
+    """``inv_res_tc_kernel`` (tensor cores, bf16) on a CUDA tensor;
+    ``tile`` a plan (th, tw, mc, mt, nt16), else ``inv_res_tc_plan``'s;
+    ``packed`` as ``_inv_res_packed`` returns it."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: the tensor-core kernel takes bf16, got "
+                         f"{x.dtype}")
+    (b, cin, cmid, cout, h, w), (be, wd, bd, bp) = _inv_res_kernel_args(
+        x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, stride, residual, what)
+    dev = x.device
+    we = None if w_exp is None else _tc_operand([w_exp], packed[0], dev, what)
+    wp = _tc_operand([w_proj], packed[1], dev, what)
+    th, tw, mc, mt, nt16 = tile or _inv_res_tc_plan(
+        cin, cmid, cout, h // stride, w // stride, stride, b,
+        sm_count=_sm_count(dev))
+    out = torch.empty((b, cout, h // stride, w // stride), dtype=x.dtype,
+                      device=dev)
+    from segtpu_torch.kernels._build import load
+    fn = load("inv_res").segtpu_inv_res_tc
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = _launch(fn, x, x.data_ptr(),
+                 we.data_ptr() if we is not None else None,
+                 be.data_ptr() if be is not None else None, wd.data_ptr(),
+                 bd.data_ptr(), wp.data_ptr(), bp.data_ptr(), out.data_ptr(),
+                 b, cin, cmid, cout, h, w, stride, th, tw, mc, mt, nt16,
+                 int(residual), inv_res_tc_smem(cin, mc, cout, th, tw, stride))
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    return out
+
+
 def inv_res_chw(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
                 residual: bool = False, use_kernels: bool = True):
     """Fused stride-1 inverted residual, x [B, Cin, H, W] -> [B, Cout,
     H, W]: expand 1x1 + relu6 (skipped when ``w_exp`` is None), dw 3x3
     + relu6, project 1x1 (+ x when ``residual``), BN folded into every
-    OIHW weight. On a CUDA tensor this launches the kernel
-    (``inv_res_chw.launches``)."""
+    OIHW weight. On a CUDA tensor this launches the CUDA-core kernel,
+    bf16 or f32 (``inv_res_chw.launches``)."""
     if _use_plain(x, use_kernels, "inv_res_chw"):
         return inv_res_chw_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj,
                                  residual=residual)
@@ -473,7 +546,7 @@ def inv_res_s2_chw(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
     """Fused stride-2 inverted residual (torch pad=1: output (i, j) reads
     input rows 2i-1..2i+1 and columns 2j-1..2j+1), x [B, Cin, H, W]
     (H, W even) -> [B, Cout, H/2, W/2]. On a CUDA tensor this launches
-    the kernel (``inv_res_s2_chw.launches``)."""
+    the CUDA-core kernel (``inv_res_s2_chw.launches``)."""
     if _use_plain(x, use_kernels, "inv_res_s2_chw"):
         return inv_res_s2_chw_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj,
                                     b_proj)
@@ -483,8 +556,37 @@ def inv_res_s2_chw(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
     return out
 
 
+def inv_res_tc_chw(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
+                   stride: int = 1, residual: bool = False, packed=None):
+    """``inv_res_chw`` (stride 1) or ``inv_res_s2_chw`` (stride 2) of a
+    bf16 x on the tensor cores (``inv_res_tc_kernel``), which sum each
+    product in their own f32 order: a few elements in a thousand one
+    rounding from the twins'. No serving path calls it (the encoder's
+    blocks run ``inv_res_chw``/``inv_res_s2_chw``: through 17 blocks this
+    order moves arch0's masks under the slice floor, PERF.md); the smoke
+    test and ``inv_res_sweep`` do. ``packed``: (``pack_weights(w_exp)`` or
+    None, ``pack_weights(w_proj)``), or None to pack them for the call.
+    On a CPU tensor this runs the plain twin; on a CUDA tensor it
+    launches the kernel (``inv_res_tc_chw.launches``)."""
+    if stride not in (1, 2):
+        raise ValueError(f"inv_res_tc_chw: stride 1 or 2, got {stride}")
+    what = "inv_res_tc_chw"
+    pk = _inv_res_packed(packed, w_exp, w_proj, what)
+    if _on_cpu(x, what):
+        _inv_res_geometry(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj,
+                          stride, residual, what)
+        return _inv_res_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj,
+                              stride=stride, residual=residual)
+    out = _inv_res_tc_launch(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj,
+                             stride=stride, residual=residual, what=what,
+                             packed=pk)
+    inv_res_tc_chw.launches += 1
+    return out
+
+
 inv_res_chw.launches = 0
 inv_res_s2_chw.launches = 0
+inv_res_tc_chw.launches = 0
 
 
 # ------------------------------------- tensor-core weights and plans
@@ -535,6 +637,109 @@ def _tc_operand(parts, packed, dev, what):
     if packed.device != dev or not packed.is_contiguous():
         raise ValueError(f"{what}: packed weight must be contiguous on {dev}")
     return packed
+
+
+# ---------------------------- tensor-core inverted residuals (bf16)
+
+_TC_WARPS = 8         # warps of an inverted-residual block (256 threads)
+_TC_RAW = 32          # input channels a staged raw window holds (kRC)
+_TC_ACC = 80          # most f32 project accumulators a thread holds
+
+# (cin, cmid, cout, stride) -> (th, tw, mc, mt, nt16): the plan fastest on
+# average over three runs of ``python3 -m segtpu_torch.kernels.inv_res_sweep
+# --kernel tc`` at the MobileNet-v2 blocks of a bf16 b8 1024x2048 batch on an
+# H100 (PERF.md)
+_MEASURED_TC_TILES = {
+    (32, 32, 16, 1): (8, 32, 32, 2, 1), (16, 96, 24, 2): (4, 16, 32, 1, 1),
+    (24, 144, 24, 1): (8, 16, 48, 1, 2), (24, 144, 32, 2): (8, 8, 48, 1, 1),
+    (32, 192, 32, 1): (8, 32, 32, 2, 2), (32, 192, 64, 2): (4, 16, 32, 1, 2),
+    (64, 384, 64, 1): (8, 16, 48, 2, 2), (64, 384, 96, 1): (4, 16, 64, 1, 3),
+    (96, 576, 96, 1): (8, 8, 64, 1, 3), (96, 576, 160, 2): (8, 16, 32, 2, 5),
+    (160, 960, 160, 1): (8, 16, 64, 2, 5), (160, 960, 320, 1): (4, 16, 64, 2, 5),
+}
+
+
+def inv_res_tc_smem(cin: int, mc: int, cout: int, th: int, tw: int,
+                    stride: int) -> int:
+    """Shared-memory bytes of one bf16 inverted-residual block
+    (csrc/inv_res.cu ``tc::layout``): two buffers of the chunk's f32
+    depthwise weights and biases; f32 mid [mc][plane] (rows of the
+    window's columns rounded to 4, the plane rounded to 4 mod 16) and
+    bf16 d [th tw][mc + 8], the raw window [min(Cin16, 32)][rows]
+    [8-aligned staged cols] over both; bf16 xt [window pixels rounded to
+    16][Cin16 + 8], the chunk's expand weights [mc][Cin16 + 8] (an
+    identity without an expand) and project weights [Cout16][mc + 8]."""
+    wh, ww = inv_res_window(th, tw, stride)
+    cin16, dp = _r16(cin), mc + 8
+    plane = ((wh * _r4(ww) + 11) & ~15) + 4
+    small = 4 * 2 * (_r4(9 * mc) + 2 * mc)
+    mid, d = 4 * mc * plane, 2 * th * tw * dp
+    raw = 2 * min(cin16, _TC_RAW) * wh * _r8(7 + ww)
+    xt = 2 * _r16(wh * ww) * (cin16 + 8)
+    we = 2 * mc * (cin16 + 8)
+    return small + max(mid + d, raw) + xt + we + 2 * _r16(cout) * dp
+
+
+def inv_res_tc_layouts(cout: int):
+    """[(mt, nt16, pixels)] of the warp layouts a block of ``cout`` output
+    channels can take: WN = Cout16 / (16 nt16) warps across the channels
+    (1, 2, 4 or 8), 8 / WN across the tile's pixels, each mt m16 tiles."""
+    c16 = _r16(cout)
+    out = []
+    for nt16 in range(1, 6):
+        wn = c16 // (16 * nt16)
+        if c16 % (16 * nt16) == 0 and wn in (1, 2, 4, 8):
+            out += [(mt, nt16, 16 * mt * (_TC_WARPS // wn))
+                    for mt in (1, 2) if 8 * mt * nt16 <= _TC_ACC]
+    return out
+
+
+def inv_res_tc_plans(cin: int, cmid: int, cout: int, ho: int, wo: int,
+                     stride: int):
+    """Every plan (th, tw, mc, mt, nt16) a bf16 block may launch with:
+    a warp layout of ``inv_res_tc_layouts``, a tile th x tw of its pixels
+    (tw a multiple of 4, no more than twice the output's extent where
+    any tile is), mc a multiple of 16 up to 64 dividing cmid, in 227 KB
+    of shared memory. The sum order does not depend on the plan."""
+    plans = [(p // tw, tw, mc, mt, nt16)
+             for mt, nt16, p in inv_res_tc_layouts(cout)
+             for tw in (4, 8, 16, 32, 64) if p % tw == 0
+             for mc in (16, 32, 48, 64) if cmid % mc == 0
+             and inv_res_tc_smem(cin, mc, cout, p // tw, tw,
+                                 stride) <= _SMEM_LIMIT]
+    near = [t for t in plans if _tile_ok(t[0], t[1], ho, wo)]
+    return near or plans
+
+
+def inv_res_tc_plan(cin: int, cmid: int, cout: int, ho: int, wo: int,
+                    stride: int, batch: int, *, sm_count: int):
+    """(th, tw, mc, mt, nt16) of one bf16 inverted-residual launch: the
+    measured plan of the block shape where there is one and it is among
+    ``inv_res_tc_plans``; otherwise, of those plans, the first by: two
+    blocks fit an SM (shared memory and 40 accumulators a thread), every
+    one of the card's ``sm_count`` multiprocessors gets two blocks, the
+    most pixels a tile, the least window recomputed per pixel, mc nearest
+    32."""
+    plans = inv_res_tc_plans(cin, cmid, cout, ho, wo, stride)
+    if not plans:
+        raise ValueError(f"inv_res: no tensor-core plan fits for cin={cin} "
+                         f"cmid={cmid} cout={cout} at {ho}x{wo}")
+    t = _MEASURED_TC_TILES.get((cin, cmid, cout, stride))
+    if t is not None and t in plans:
+        return t
+
+    def key(plan):
+        th, tw, mc, mt, nt16 = plan
+        wh, ww = inv_res_window(th, tw, stride)
+        two = (inv_res_tc_smem(cin, mc, cout, th, tw, stride) <= _TWO_BLOCKS
+               and 8 * mt * nt16 <= _TC_ACC // 2)
+        full = batch * _cdiv(ho, th) * _cdiv(wo, tw) >= 2 * sm_count
+        return (not two, not full, -th * tw, wh * ww / (th * tw),
+                abs(mc - 32), -tw)
+    return min(plans, key=key)
+
+
+_inv_res_tc_plan = functools.lru_cache(maxsize=None)(inv_res_tc_plan)
 
 
 _PW_PIXELS = 128      # pixels of a pointwise block (csrc/pointwise.cu kTP)
