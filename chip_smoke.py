@@ -27,8 +27,9 @@ Phases, each a hard failure (non-zero exit) when it fails:
    serving path calls) and held to its twin at the same tolerance, which
    that kernel's own f32 sum order needs. The served kernel's output
    feeds the next stage. Then every stage in f32 at 2x128x256 (rtol =
-   atol = 1e-4), and conv_chw's other forms and odd-sized blocks at small
-   shapes, f32 and bf16 (bf16 on both kernels; Cin 24, and a stride-2
+   atol = 1e-4), and conv_chw's other forms (k = 1 bit for bit) and
+   odd-sized blocks at small shapes, f32 and bf16 (bf16 on both kernels;
+   Cin 24, and a stride-2
    block on a shard's rows with its 2-row halo, whose rows must equal the
    whole input's). Each launch is timed in turns with, for a block, the
    tensor-core kernel, and a cuDNN yardstick (F.conv2d with the folded
@@ -38,7 +39,10 @@ Phases, each a hard failure (non-zero exit) when it fails:
    its plain twin.
 5. decoder: the folded arch0 decoder on the kernels' taps of seeded b8
    1024x2048 frames, every kernel call recorded and replayed against its
-   plain twin (bf16 as in phase 4; a cell_op_chw call node by node, each
+   plain twin (conv_chw's k = 1 calls and resize_chw's bit for bit, each
+   printed with its bytes bound and its f32 FMA floor at the card's
+   measured 59.5 TFLOP/s; the rest bf16 as in phase 4; a cell_op_chw call
+   node by node, each
    node against the twin's node on the same entries, and the whole call
    at >= 99 % bit-identical and a worst error <= 2e-2 of max(|ref|, 1):
    the tensor-core nodes sum in another f32 order than the twins and a
@@ -46,16 +50,20 @@ Phases, each a hard failure (non-zero exit) when it fails:
    function as PyTorch library calls (cuDNN convolutions, F.interpolate;
    kernel and library in turns, each over a ~25 ms window); likewise on
    genotype G2's b8 512x512 path for the kernels arch0 does not reach
-   (pair_op_chw, pw_multi_chw) and the W-first tail on its logits. The
+   (pair_op_chw, pw_multi_chw) and the W-first tail on its logits (G2's
+   conv_chw k = 1 and resize_chw calls bit for bit, untimed). The
    bf16 taps and logits are held against the unfolded model run in f32
    through cuDNN (worst error <= 3 % of the largest tap value, <= 5 % of
    the largest logit), the kernels' encoder taps are as close to that
    run's (mean absolute error) as the plain twins' encoder's taps, within
    ENC_TAPS_ALLOWANCE, and the kernels' masks agree with that run's at
    least as well as the plain twins' decoder's do, less 0.1 %. Then every
-   decoder call in f32 at small shapes against its twin (1e-4) and its
-   library version (1e-4 of the largest value), and the decoder kernels'
-   other forms at odd sizes.
+   decoder call in f32 at small shapes against its twin (1e-4; conv_chw
+   k = 1 and resize_chw bit for bit) and its library version (1e-4 of the
+   largest value), the decoder kernels' other forms at odd sizes, and
+   conv_chw k = 1's and resize_chw's forms of pw_resize_probe.forms (the
+   scalar and 16-byte paths, acc, vec_acc, 1-3 chain stages, 700
+   channels, a row window; bf16 and f32) bit for bit.
 6. slice: Segmenter for arch0, 19 classes, seeded weights with BatchNorm
    perturbed. predict_batch on 8 seeded 1024x2048 frames (the main
    path, launch counts reset just before and read just after, each
@@ -124,11 +132,13 @@ last, {"ok": true, "device": {...}}. Writes chiprun_out/chip_smoke.json.
 --control BITS runs a control instead of the phases: the bf16
 tensor-core node, 1x1 and inverted-residual kernels' outputs (cell.cu's
 node_tc_kernel, pointwise.cu's pw_tc_kernel, inv_res.cu's
-inv_res_tc_kernel) rounded once more, to BITS
-significant bits, and the checks that hold those kernels at a tolerance
-(phase 4's 17 block stages, phase 5's calls, encoder taps and f32
-reference, phase 6's arch0 and G2 masks, phase 8's shard logits) run on
-it. It exits 0 when every one of them fails.
+inv_res_tc_kernel), and conv_chw's k = 1 and resize_chw's outputs (bf16
+and f32), rounded once more, to BITS significant bits, and the checks
+that hold those kernels at a tolerance (phase 4's 17 block stages, phase
+5's calls, encoder taps and f32 reference, phase 6's arch0 and G2 masks,
+phase 8's shard logits) or bit for bit (conv_chw k = 1 and resize_chw at
+every launch of phase 5's main, G2 and f32 paths, the forms, and phase
+8's sharded decoder) run on it. It exits 0 when every one of them fails.
 """
 
 from __future__ import annotations
@@ -145,6 +155,10 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12        # H100 SXM data sheet, f32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12      # H100 SXM data sheet, bf16 tensor cores, dense
+# fmaf chains on the card (segtpu_torch.scripts.exp_vpu_floor, NVIDIA H100
+# 80GB HBM3 at 700 W): the floor of a CUDA-core design that keeps the
+# twins' f32 sum order
+F32_FMA_MEASURED_FLOP_PER_S = 59.5e12
 
 N, H, W, K = 8, 1024, 2048, 19
 
@@ -285,6 +299,29 @@ def _compare(torch, got, want, what):
     return abs_err
 
 
+def _exact(torch, got, want, what):
+    """got bit for bit equal to its twin's want (shape, dtype, every
+    bit): the CUDA-core kernels that sum in the twins' order. Returns the
+    worst absolute error (0.0)."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
+          f"{want.dtype}")
+    check(bool(torch.isfinite(got.float()).all()), f"{what}: non-finite output")
+    view = torch.int16 if got.element_size() == 2 else torch.int32
+    same = torch.equal(got.view(view), want.view(view))
+    err = (got.float() - want.float()).abs().max().item()
+    print(f"[check] {what}: bit-identical={same} max_abs_err={err!r}")
+    check(same, f"{what}: differs from its plain twin (max_abs_err {err})")
+    return err
+
+
+def exact_call(name, a) -> bool:
+    """A recorded call of the kernels held to their twins bit for bit:
+    resize_chw and conv_chw's k = 1 dense form (conv1x1_kernel)."""
+    return name == "resize_chw" or (
+        name == "conv_chw" and a["k"] == 1 and not a["depthwise"])
+
+
 def _bits_rate(torch, got, want) -> float:
     return (got.view(torch.int16) == want.view(torch.int16)).float().mean().item()
 
@@ -297,8 +334,8 @@ CELL_CALL_TOL = 2e-2
 
 def check_call(torch, name, fn, a, what):
     """A recorded decoder call's kernel output against its plain twin's on
-    the same inputs (``_compare``); returns (kernel output, worst abs
-    error). A bf16 ``cell_op_chw`` call launches one node kernel per node,
+    the same inputs (``_exact`` for ``exact_call``, else ``_compare``);
+    returns (kernel output, worst abs error). A bf16 ``cell_op_chw`` call launches one node kernel per node,
     each node reading the ones before: its nodes are held one by one, each
     against the twin's node on the same entries (the kernel's earlier
     nodes), then the collect sum; the whole call is held to the twin's
@@ -307,6 +344,8 @@ def check_call(torch, name, fn, a, what):
     moves the next node's sums)."""
     got = replay(fn, a, True)
     what = f"{what} {tuple(got.shape)}"
+    if exact_call(name, a):
+        return got, _exact(torch, got, replay(fn, a, False), what)
     if name != "cell_op_chw" or got.dtype != torch.bfloat16:
         return got, _compare(torch, got, replay(fn, a, False), what)
     from segtpu_torch.kernels.chw_ops import cell_op_chw
@@ -484,6 +523,7 @@ def phase_kernel_forms(torch):
         (5, 1, True, "relu", 48, 48, False, False),
         (5, 6, True, "none", 48, 48, True, False),
         (1, 1, False, "none", 96, 19, True, False),
+        (1, 1, False, "relu", 48, 48, False, True),
         (3, 1, False, "relu", 48, 48, False, True),
         (2, 1, False, "relu6", 12, 32, False, False),
     ]
@@ -498,7 +538,8 @@ def phase_kernel_forms(torch):
             args = (x.to(dt), w if dw else w.to(dt), b,
                     None if acc is None else acc.to(dt), vec)
             kw = dict(k=k, dilation=dil, depthwise=dw, act=act)
-            _compare(torch, conv_chw(*args, **kw),
+            (_exact if k == 1 and not dw else _compare)(
+                torch, conv_chw(*args, **kw),
                      conv_chw(*args, **kw, use_kernels=False),
                      f"conv_chw k={k} dil={dil} dw={dw} {act} acc={use_acc} "
                      f"vec={use_vec} {dt}")
@@ -811,6 +852,9 @@ def phase_decoder(torch, res):
             for i, (name, fn, a) in enumerate(calls):
                 # the main path's kernels are measured on it, the rest on G2
                 if path == "G2" and name not in G2_ONLY:
+                    if exact_call(name, a):
+                        check_call(torch, name, fn, a,
+                                   f"{path} call {i:2d} {name}")
                     continue
                 got, err = check_call(torch, name, fn, a,
                                       f"{path} call {i:2d} {name}")
@@ -827,8 +871,15 @@ def phase_decoder(torch, res):
                       f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
                       f"{lib_ms:.4f} ms")
                 nb, dot, f32 = call_work(name, a, got)
+                # the dot products as f32 FMAs on the CUDA cores at the
+                # card's measured rate: the floor of a design that keeps
+                # the twins' sum order
+                fma_ms = dot / F32_FMA_MEASURED_FLOP_PER_S * 1e3
+                bms = bound_ms(nb, dot, f32)[0]
+                print(f"[timing] {path} call {i:2d} {name} {shape}: bound "
+                      f"{bms:.4f} ms, f32 FMA floor {fma_ms:.4f} ms")
                 stage_ms.append((path, name, list(shape), ms, plain_ms,
-                                 lib_ms, bound_ms(nb, dot, f32)[0]))
+                                 lib_ms, bms, fma_ms))
                 for key, v in (("ms", ms), ("plain_ms", plain_ms),
                                ("library_ms", lib_ms), ("bytes", nb),
                                ("dot", dot), ("f32", f32), ("n", 1)):
@@ -842,7 +893,18 @@ def phase_decoder(torch, res):
           "the G2 path did not reach pw_multi_chw and pair_op_chw")
     decoder_f32(torch)
     phase_decoder_forms(torch)
+    for what, fn in exact_forms(torch):
+        _exact(torch, fn(True), fn(False), what)
     return stage_ms
+
+
+def exact_forms(torch):
+    """[(what, fn(use_kernels))]: conv_chw's k = 1 and resize_chw's forms
+    at odd sizes and widths, bf16 and f32 (pw_resize_probe.forms: the
+    scalar and 16-byte paths, acc and vec_acc, Cout over 96, one to three
+    chain stages, a 100-wide stage, 700 channels in chunks, a row window)."""
+    from segtpu_torch.kernels.pw_resize_probe import forms, seeded
+    return forms(torch, seeded(torch, 9))
 
 
 def flat_tail(torch, logits, r, stage_ms):
@@ -959,7 +1021,8 @@ def phase_decoder_forms(torch):
                 use_kernels=uk),
         }
         for what, fn in cases.items():
-            _compare(torch, fn(True), fn(False), f"{what} {dt}")
+            (_exact if what.startswith("resize") else _compare)(
+                torch, fn(True), fn(False), f"{what} {dt}")
 
 
 # the tensor-core encoder's taps may be this share further (mean absolute
@@ -1054,8 +1117,9 @@ def decoder_f32(torch):
         with torch.inference_mode():
             for i, (name, fn, a) in enumerate(calls):
                 got = replay(fn, a, True)
-                _compare(torch, got, replay(fn, a, False),
-                         f"f32 call {i:2d} {name} {tuple(got.shape)}")
+                (_exact if exact_call(name, a) else _compare)(
+                    torch, got, replay(fn, a, False),
+                    f"f32 call {i:2d} {name} {tuple(got.shape)}")
                 _lib_compare(torch, got, library_call(torch, name, a),
                              f"f32 call {i:2d} {name}", 1e-4)
 
@@ -1810,18 +1874,20 @@ SCRIPT_OF = {n: s for s, ns in EXPERIMENT_KERNELS.items() for n in ns}
 
 @contextlib.contextmanager
 def coarse_decoder(torch, bits: int):
-    """A control: the bf16 node, 1x1 and inverted-residual kernels
-    (``cell.cu``, ``pointwise.cu``, ``inv_res.cu``) made wrong on purpose,
-    each output rounded once more to ``bits`` significant bits (bf16
-    keeps 8): up to 2^-bits of the value, on about half the elements at
-    bits = 7, where the tensor-core kernels differ from their twins by
-    one rounding on a few elements in a thousand."""
+    """A control: the kernels held to their twins at a tolerance or bit
+    for bit made wrong on purpose, each output rounded once more to
+    ``bits`` significant bits (bf16 keeps 8): up to 2^-bits of the value,
+    on about half the elements at bits = 7, where the tensor-core kernels
+    differ from their twins by one rounding on a few elements in a
+    thousand. The bf16 node, 1x1 and inverted-residual kernels
+    (``cell.cu``, ``pointwise.cu``, ``inv_res.cu``), and conv_chw's k = 1
+    dense kernel and resize_chw's kernel in bf16 and f32."""
+    import importlib
     from segtpu_torch.kernels import chw_ops
-    names = ("_node_launch", "_pw_launch", "_inv_res_tc_launch")
-    saved = [getattr(chw_ops, n) for n in names]
+    rz = importlib.import_module("segtpu_torch.kernels.resize_chw")
 
-    def coarsen(out):
-        if out.dtype == torch.bfloat16:
+    def coarsen(out, bf16_only=True):
+        if out.dtype == torch.bfloat16 or not bf16_only:
             m, e = torch.frexp(out.float())
             out.copy_(torch.ldexp(torch.round(m * 2.0 ** bits)
                                   / 2.0 ** bits, e))
@@ -1832,13 +1898,30 @@ def coarse_decoder(torch, bits: int):
             return coarsen(launch(*args, **kw))
         return run
 
-    for n, f in zip(names, saved):
-        setattr(chw_ops, n, coarse(f))
+    def coarse_1x1(launch):
+        def run(x, w, bias, acc, vec_acc, k, dilation, depthwise, act):
+            out = launch(x, w, bias, acc, vec_acc, k, dilation, depthwise,
+                         act)
+            return coarsen(out, False) if k == 1 and not depthwise else out
+        return run
+
+    def coarse_resize(launch):
+        def run(*args, **kw):
+            return coarsen(launch(*args, **kw), False)
+        return run
+
+    patches = [(chw_ops, n, coarse) for n in
+               ("_node_launch", "_pw_launch", "_inv_res_tc_launch")]
+    patches += [(chw_ops, "_conv_launch", coarse_1x1),
+                (rz, "_resize_launch", coarse_resize)]
+    saved = [(mod, n, getattr(mod, n)) for mod, n, _ in patches]
+    for mod, n, make in patches:
+        setattr(mod, n, make(getattr(mod, n)))
     try:
         yield
     finally:
-        for n, f in zip(names, saved):
-            setattr(chw_ops, n, f)
+        for mod, n, f in saved:
+            setattr(mod, n, f)
 
 
 @contextlib.contextmanager
@@ -1870,7 +1953,8 @@ def must_fail(what, fn) -> bool:
 
 def phase_control(torch, bits: int) -> dict:
     """``--control BITS``: the checks that hold the bf16 tensor-core
-    kernels at a tolerance, run with ``coarse_decoder(bits)``: each must
+    kernels at a tolerance, and those that hold conv_chw's k = 1 and
+    resize_chw bit for bit, run with ``coarse_decoder(bits)``: each must
     fail. Returns {check: failed}."""
     from segtpu_torch.engine import Segmenter, ShardedSegmenter
     from segtpu_torch.models import ARCHS
@@ -1900,7 +1984,8 @@ def phase_control(torch, bits: int) -> dict:
                 torch, model, dec, img))
         with torch.inference_mode():
             for i, (name, fn, a) in enumerate(calls):
-                if name in ("sep_conv_chw", "cell_op_chw", "pw_chain_chw"):
+                if name in ("sep_conv_chw", "cell_op_chw", "pw_chain_chw") \
+                        or exact_call(name, a):
                     res[f"main call {i:2d} {name} vs its twin"] = must_fail(
                         f"main call {i:2d} {name}",
                         lambda: check_call(torch, name, fn, a, f"call {i}"))
@@ -1908,6 +1993,25 @@ def phase_control(torch, bits: int) -> dict:
             "f32 reference", lambda: check_library_reference(
                 torch, model, dec, img, taps, logits))
         del calls, taps, logits
+        # the bit-exact checks of conv_chw's k = 1 and resize_chw: G2's
+        # calls, every f32 call, the forms
+        from segtpu_torch.models import ARCHS as _A
+        for path, genotype, hw, dtype, batch in (
+                ("G2", G2, (H2, W2), torch.bfloat16, N),
+                ("f32 arch0", _A["arch0"], (128, 256), torch.float32, 2),
+                ("f32 G2", G2, (128, 128), torch.float32, 2)):
+            *_, calls = decoder_calls(torch, genotype, hw, dtype, batch)
+            with torch.inference_mode():
+                for i, (name, fn, a) in enumerate(calls):
+                    if exact_call(name, a):
+                        what = f"{path} call {i:2d} {name}"
+                        res[f"{what} vs its twin"] = must_fail(
+                            what, lambda: check_call(torch, name, fn, a, what))
+            del calls
+        with torch.inference_mode():
+            for what, fn in exact_forms(torch):
+                res[f"form {what} vs its twin"] = must_fail(
+                    what, lambda: _exact(torch, fn(True), fn(False), what))
         frames = np.random.default_rng(3).integers(0, 256, (N, H, W, 3),
                                                    dtype=np.uint8)
         for name, genotype, fr in (("arch0", ARCHS["arch0"], frames),
@@ -1931,7 +2035,17 @@ def phase_control(torch, bits: int) -> dict:
                                                           return_taps=True))
             res["space shard logits vs the plain twins"] = must_fail(
                 "space logits", lambda: shard_logits_hold(torch, got, want))
-            del got, want, sh, ref_sh
+            del got, want
+            # the sharded decoder's conv_chw k = 1 and resize_chw calls
+            _, calls = record_decoder(torch, sh.decoder,
+                                      sh.infer_shards(x, return_taps=True))
+            with torch.inference_mode():
+                for i, (name, fn, a) in enumerate(calls):
+                    if exact_call(name, a):
+                        what = f"space call {i:2d} {name}"
+                        res[f"{what} vs its twin"] = must_fail(
+                            what, lambda: check_call(torch, name, fn, a, what))
+            del calls, sh, ref_sh
     return res
 
 
@@ -1986,7 +2100,8 @@ def main() -> None:
                         "ms": sum(c[3] for c in dec_conv),
                         "plain_ms": sum(c[4] for c in dec_conv),
                         "library_ms": sum(c[5] for c in dec_conv),
-                        "bound_ms": sum(c[6] for c in dec_conv)}}
+                        "bound_ms": sum(c[6] for c in dec_conv),
+                        "fma_floor_ms": sum(c[7] for c in dec_conv)}}
     print(f"[timing] conv_chw split: {t['conv_chw_split']}")
     b = bounds(work)
     work["front"] = dict(max_abs_err=front_err, ms=t["front"],

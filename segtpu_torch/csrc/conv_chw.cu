@@ -14,61 +14,48 @@
 // f32 and the upcast input is multiplied in f32. bias, vec and the sum are
 // f32; one rounding at the store, as the TPU kernel. Sums run over input
 // channels, then taps (row-major), from zero, each product and add rounded
-// once: the order of the plain twin (kernels/chw_ops.py), which this kernel
-// matches bit for bit.
+// once: the order of the plain twin (kernels/chw_ops.py), which every
+// kernel here matches bit for bit.
 //
-// Bound on the H100: on the main path this is the s2d stem, k = 2, 12 ->
-// 32 channels at 8 x 512 x 1024: 101 MB read + 268 MB written (0.11 ms at
-// 3.35 TB/s) and 12.9 GFLOP of products (0.013 ms at the bf16 tensor-core
-// rate, 0.19 ms in f32 on the CUDA cores this version uses).
-// Design (simple first version): a block owns an 8 x 32 output tile of one
-// image and a group of COB output channels (dense) or CC channels
-// (depthwise). It stages a chunk of input channels, tile plus halo, in
-// shared memory as f32 with the zero padding written in, and (dense) the
-// chunk's weights as [c][tap][COB] f32, so that one thread per output pixel
-// reads one input value per tap and a 4-wide weight vector broadcast to the
-// warp for every 4 output channels it accumulates in registers. Every input
-// value staged is reused COB times. Tensor cores are a later step.
+// Bound on the H100, bytes for both forms on the main path. The s2d stem,
+// k = 2, 12 -> 32 channels at 8 x 512 x 1024: 101 MB read + 268 MB written
+// (0.11 ms at 3.35 TB/s) and 12.9 GFLOP of products (0.013 ms at the bf16
+// tensor-core rate, 0.19 ms in f32 on the CUDA cores this version uses).
+// The decoder's three 1x1s (48 -> 48 at 8 x 64 x 128 and 8 x 128 x 256,
+// 48 -> 19 at 8 x 256 x 512): 203 MB (0.061 ms) and 1.71 G multiply-adds
+// (0.058 ms at the 59.5 TFLOP/s f32 FMA rate measured on the card).
+//
+// k > 1 (conv_dense_kernel, conv_depthwise_kernel), a simple first version:
+// a block owns an 8 x 32 output tile of one image and a group of COB output
+// channels (dense) or CC channels (depthwise). It stages a chunk of input
+// channels, tile plus halo, in shared memory as f32 with the zero padding
+// written in, and (dense) the chunk's weights as [c][tap][COB] f32, so that
+// one thread per output pixel reads one input value per tap and a 4-wide
+// weight vector broadcast to the warp for every 4 output channels it
+// accumulates in registers. Every input value staged is reused COB times.
+//
+// k = 1 dense (conv1x1_kernel): no halo, so a block takes up to 96 output
+// channels (all of Cout 19 and 48) over runs of 32 * PX pixels of one image
+// and reads every input byte once. One warp per group of CO channels,
+// each thread a register tile of CO channels x PX pixels (pw_tile.cuh; the
+// plan's 12 x 4 is within 2 % of the fastest tile at both path shapes).
+// The block is persistent: its weights and biases are staged once, then
+// it walks runs blockIdx.x, + gridDim.x, ... of all images, each run's
+// input chunks of kc channels one step of a ring of four buffers filled by
+// 16-byte cp.async, three steps ahead across runs; the epilogue stores PX
+// pixels at a time. conv1x1_plan (kernels/chw_ops.py) picks (CO, PX, ng,
+// kc) and the C entry checks it against conv1x1_smem. A channel plane that
+// is not 16-byte aligned takes scalar loads and stores.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "pw_tile.cuh"
+
+using namespace segtpu;
 
 namespace {
 
 constexpr int kTH = 8, kTW = 32, kThreads = kTH * kTW;
 constexpr int kSmemBudget = 48 * 1024;      // bytes per block we aim for
 constexpr int kSmemMax = 227 * 1024;        // opt-in maximum on the H100
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// s + w * x with the product and the sum each rounded once, as the plain
-// PyTorch twin computes it. With bf16 operands (T = __nv_bfloat16) the
-// product is exact in f32, so one fused multiply-add rounds the same way.
-template <typename T>
-__device__ __forceinline__ float mac(float s, float w, float x) {
-  return __fadd_rn(s, __fmul_rn(w, x));
-}
-template <>
-__device__ __forceinline__ float mac<__nv_bfloat16>(float s, float w, float x) {
-  return fmaf(w, x, s);
-}
-
-__device__ __forceinline__ float activate(float v, int act) {
-  if (act == 1) return fmaxf(v, 0.f);
-  if (act == 2) return fminf(fmaxf(v, 0.f), 6.f);
-  return v;
-}
 
 struct ConvArgs {
   const void* x;
@@ -237,10 +224,189 @@ int run_depthwise(ConvArgs a, cudaStream_t s) {
   return launch(conv_depthwise_kernel<T, K>, a, smem, s);
 }
 
+// ---------------------------------------------------------------- k = 1
+
+constexpr int k1Lanes = 32;     // pixel threads of a channel group: a warp
+constexpr int k1MaxGroups = 8;  // channel groups (warps) of a block
+constexpr int k1Stages = 4;     // chunk buffers: three in flight, one read
+
+// The plan of a k = 1 dense launch (kernels/chw_ops.py conv1x1_plan): CO
+// channels x PX pixels a thread, ng channel groups of one warp each (a
+// block's ng * CO channels over runs of P = 32 * PX pixels), kc input
+// channels a staged chunk, `groups` blocks along Cout, `smem` bytes; vec:
+// the 16-byte path.
+struct Plan1x1 {
+  int co, px, ng, kc, groups, smem, vec;
+};
+
+// Shared bytes of a plan: the f32 weights [C][ng * CO] and bias [ng * CO],
+// then k1Stages chunks [kc][P] of the input in T.
+inline int conv1x1_smem(int C, const Plan1x1& p, int elt) {
+  return 4 * (C + 1) * p.ng * p.co + k1Stages * p.kc * k1Lanes * p.px * elt;
+}
+
+// The epilogue of a thread's tile at pixels [q, q + min(PX, left)) of
+// image b: bias, activation, + add, + vec, one rounding (store_out's
+// order), PX pixels a store on the vector path. bias: the thread's CO
+// biases (shared memory).
+template <typename T, int CO, int PX>
+__device__ __forceinline__ void store_1x1(const ConvArgs& a,
+                                          const float (&acc)[CO][PX],
+                                          const float* bias, int b,
+                                          long long hw, long long q, int left,
+                                          int cg, bool vec) {
+  const T* add = static_cast<const T*>(a.add);
+  T* out = static_cast<T*>(a.out);
+#pragma unroll
+  for (int j = 0; j < CO; ++j) {
+    const int co = cg + j;
+    if (co < a.Cout) {
+      const size_t o = ((size_t)b * a.Cout + co) * hw + q;
+      const float vv = a.vec ? a.vec[(size_t)b * a.Cout + co] : 0.f;
+      float y[PX];
+#pragma unroll
+      for (int k = 0; k < PX; ++k) y[k] = activate(acc[j][k] + bias[j], a.act);
+      if (vec) {              // hw % 8 == 0: the PX pixels are all in
+        if (add) {
+          float av[PX];
+          load_px<PX>(add + o, av);
+#pragma unroll
+          for (int k = 0; k < PX; ++k) y[k] += av[k];
+        }
+        if (a.vec) {
+#pragma unroll
+          for (int k = 0; k < PX; ++k) y[k] += vv;
+        }
+        store_px<PX>(out + o, y);
+      } else {
+#pragma unroll
+        for (int k = 0; k < PX; ++k) {
+          if (k < left) {
+            float v = y[k];
+            if (add) v += to_f32(add[o + k]);
+            if (a.vec) v += vv;
+            out[o + k] = from_f32<T>(v);
+          }
+        }
+      }
+    }
+  }
+}
+
+// A persistent block: its channel group's weights and biases staged once,
+// then the runs blockIdx.x, + gridDim.x, ... of all images (items), each
+// run's input chunks one step of a ring of k1Stages buffers that never
+// drains between runs.
+template <typename T, int CO, int PX>
+__global__ void __launch_bounds__(k1Lanes * k1MaxGroups)
+    conv1x1_kernel(ConvArgs a, Plan1x1 p) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int P = k1Lanes * PX;
+  const int nt = k1Lanes * p.ng, cpb = p.ng * CO;
+  float* w_s = smem;                                     // [C][cpb]
+  float* b_s = smem + a.C * cpb;                         // [cpb]
+  T* x_s = reinterpret_cast<T*>(b_s + cpb);              // ring [kc][P]
+  const int g = threadIdx.x / k1Lanes, pix = (threadIdx.x % k1Lanes) * PX;
+  const int co0 = blockIdx.y * cpb, cg = co0 + g * CO;
+  const bool vec = p.vec != 0, busy = cg < a.Cout;   // busy: warp-uniform
+  const long long hw = (long long)a.H * a.W;
+  const int runs = (int)((hw + P - 1) / P), items = a.B * runs;
+  const int nch = (a.C + p.kc - 1) / p.kc;
+  const int mine = items > (int)blockIdx.x
+                       ? (items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                       : 0;
+  const int steps = mine * nch;
+  const T* x = static_cast<const T*>(a.x);
+
+  // step s: chunk s % nch of the block's run s / nch, into buffer s % k1Stages
+  auto issue = [&](int s) {
+    if (s < steps) {
+      const int item = blockIdx.x + (s / nch) * gridDim.x, k = s % nch;
+      const int b = item / runs;
+      const long long p0 = (long long)(item - b * runs) * P;
+      stage_px<T>(x_s + (s % k1Stages) * p.kc * P, P,
+                  x + ((size_t)b * a.C + k * p.kc) * hw, hw, p0,
+                  (int)min((long long)P, hw - p0),
+                  min(p.kc, a.C - k * p.kc), vec, nt);
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < k1Stages - 1; ++s) issue(s);
+  stage_weights<T>(w_s, cpb, static_cast<const T*>(a.w), a.C, co0, a.Cout,
+                   nt);
+  for (int i = threadIdx.x; i < cpb; i += nt)
+    b_s[i] = co0 + i < a.Cout ? a.bias[co0 + i] : 0.f;
+  float acc[CO][PX];
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<k1Stages - 2>();    // step s has landed
+    __syncthreads();                  // ... for every thread; s - 1 is read
+    issue(s + k1Stages - 1);
+    const int k = s % nch;
+    if (k == 0) zero(acc);
+    if (busy)
+      tile_fma<T, CO, PX>(acc, x_s + (s % k1Stages) * p.kc * P + pix, P,
+                          w_s + k * p.kc * cpb + g * CO, cpb,
+                          min(p.kc, a.C - k * p.kc));
+    if (k == nch - 1) {
+      const int item = blockIdx.x + (s / nch) * gridDim.x;
+      const int b = item / runs;
+      const long long q = (long long)(item - b * runs) * P + pix;
+      if (busy && q < hw)
+        store_1x1<T, CO, PX>(a, acc, b_s + g * CO, b, hw, q,
+                             (int)min((long long)PX, hw - q), cg, vec);
+    }
+  }
+}
+
+template <typename T, int CO, int PX>
+int launch1x1(const ConvArgs& a, const Plan1x1& p, cudaStream_t s) {
+  const auto kern = conv1x1_kernel<T, CO, PX>;
+  int rc = set_smem(kern, p.smem);
+  if (rc) return rc;
+  const long long hw = (long long)a.H * a.W, P = k1Lanes * PX;
+  const int nt = k1Lanes * p.ng;
+  const int gx = resident_blocks(kern, nt, p.smem, a.B * ((hw + P - 1) / P),
+                                 p.groups);
+  if (gx < 1) return (int)cudaErrorInvalidValue;
+  kern<<<dim3(gx, p.groups), nt, p.smem, s>>>(a, p);
+  return (int)cudaGetLastError();
+}
+
+inline bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+}
+
+// A plan this source has a layout for, or cudaErrorInvalidValue.
 template <typename T>
-int run(const ConvArgs& a, int k, int depthwise, cudaStream_t s) {
+int run_1x1(const ConvArgs& a, const Plan1x1& p, cudaStream_t s) {
+  const int cpb = p.ng * p.co;
+  const bool ok =
+      p.ng >= 1 && p.ng <= k1MaxGroups && p.kc >= 1 && p.kc <= a.C &&
+      p.groups >= 1 && p.groups * cpb >= a.Cout &&
+      (p.groups - 1) * cpb < a.Cout &&
+      p.smem == conv1x1_smem(a.C, p, (int)sizeof(T)) &&
+      (!p.vec || ((long long)a.H * a.W % (p.px > 8 ? p.px : 8) == 0 &&
+                  aligned16(a.x) &&
+                  aligned16(a.out) && (!a.add || aligned16(a.add))));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  switch (p.co * 100 + p.px) {
+    case 2002: return launch1x1<T, 20, 2>(a, p, s);
+    case 1204: return launch1x1<T, 12, 4>(a, p, s);
+    case 1604: return launch1x1<T, 16, 4>(a, p, s);
+    case 808: return launch1x1<T, 8, 8>(a, p, s);
+    case 416: return launch1x1<T, 4, 16>(a, p, s);
+    case 1208: return launch1x1<T, 12, 8>(a, p, s);
+    case 408: return launch1x1<T, 4, 8>(a, p, s);
+    case 804: return launch1x1<T, 8, 4>(a, p, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int run(const ConvArgs& a, int k, int depthwise, const Plan1x1& p,
+        cudaStream_t s) {
   switch (k) {
-    case 1: return depthwise ? run_depthwise<T, 1>(a, s) : run_dense<T, 1>(a, s);
+    case 1: return depthwise ? run_depthwise<T, 1>(a, s) : run_1x1<T>(a, p, s);
     case 2: return depthwise ? run_depthwise<T, 2>(a, s) : run_dense<T, 2>(a, s);
     case 3: return depthwise ? run_depthwise<T, 3>(a, s) : run_dense<T, 3>(a, s);
     case 5: return depthwise ? run_depthwise<T, 5>(a, s) : run_dense<T, 5>(a, s);
@@ -253,13 +419,20 @@ int run(const ConvArgs& a, int k, int depthwise, cudaStream_t s) {
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
 // w: dense OIHW [Cout, C, k, k] in x's dtype, or depthwise [C, 1, k, k]
 // f32; bias f32 [Cout]; add (x's dtype) and vec (f32 [B, Cout]) may be null.
+// plan: for k = 1 dense, the 7 ints (co, px, ng, kc, groups, smem, vec) of
+// conv1x1_plan and the vector path; ignored (may be null) otherwise.
 extern "C" int segtpu_conv_chw(const void* x, const void* w, const float* bias,
                                const void* add, const float* vec, void* out,
                                int B, int C, int Cout, int H, int W, int k,
                                int dilation, int depthwise, int act, int bf16,
-                               void* stream) {
+                               const int* plan, void* stream) {
   ConvArgs a{x, w, bias, add, vec, out, B, C, Cout, H, W, dilation, act, 0, 1};
+  Plan1x1 p{};
+  if (k == 1 && !depthwise) {
+    if (!plan) return (int)cudaErrorInvalidValue;
+    p = Plan1x1{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6]};
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? run<__nv_bfloat16>(a, k, depthwise, s)
-              : run<float>(a, k, depthwise, s);
+  return bf16 ? run<__nv_bfloat16>(a, k, depthwise, p, s)
+              : run<float>(a, k, depthwise, p, s);
 }

@@ -38,8 +38,9 @@ depthwise sum over taps in row-major order; the 1x1 products over
 channels. Each step is one rounded multiply and one rounded add (a bf16
 product is exact in f32, so fused multiply-adds on bf16 operands round
 the same way; depthwise and f32 products round separately). The f32
-kernels, every depthwise sum and the bf16 encoder and resize kernels
-follow that order and give the twin's bits, on any device and at any
+kernels, every depthwise sum and the bf16 conv_chw (the stem and the
+decoder's 1x1s), inverted-residual and resize kernels follow that order
+and give the twin's bits, on any device and at any
 batch size, where a library convolution's sum order is unspecified: its
 bf16 roundings would differ here and there, and those differences grow
 through the 17 blocks of the encoder.
@@ -72,6 +73,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -233,6 +235,55 @@ def conv_chw_plain(x, w, bias, acc=None, vec_acc=None, *, k: int,
     return y.to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _conv_entry():
+    from segtpu_torch.kernels._build import load
+    fn = load("conv_chw").segtpu_conv_chw
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_ints(args: tuple):
+    """A plan's ints as the C array the entry reads (made once a plan)."""
+    return _ints(args)
+
+
+def _conv_launch(x, w, bias, acc, vec_acc, k, dilation, depthwise, act):
+    """The kernel on checked operands (csrc/conv_chw.cu; k = 1 dense takes
+    conv1x1_kernel with the plan of ``conv1x1_args``)."""
+    b, c, h, wd, cout = _conv_geometry(x, w, bias, acc, vec_acc, k,
+                                       dilation, depthwise, act)
+    if not x.is_contiguous():
+        raise ValueError("conv_chw kernel needs a contiguous x")
+    if acc is not None and (acc.dtype != x.dtype or not acc.is_contiguous()):
+        raise ValueError("conv_chw kernel needs acc contiguous in x's dtype")
+    dev = x.device
+    wk = _on(w, torch.float32 if depthwise else x.dtype, dev)
+    bk = _on(bias, torch.float32, dev)
+    vk = _on(vec_acc, torch.float32, dev)
+    if acc is not None and acc.device != dev:
+        raise ValueError(f"acc on {acc.device}, x on {dev}")
+    out = torch.empty((b, cout, h, wd), dtype=x.dtype, device=dev)
+    plan = None
+    if k == 1 and not depthwise:
+        plan = _plan_ints(conv1x1_args(
+            c, cout, h * wd, x.element_size(),
+            [t.data_ptr() for t in (x, acc, out) if t is not None]))
+    fn = _conv_entry()
+    rc = _launch(fn, x, x.data_ptr(), wk.data_ptr(), bk.data_ptr(),
+                 acc.data_ptr() if acc is not None else None,
+                 vk.data_ptr() if vk is not None else None, out.data_ptr(),
+                 b, c, cout, h, wd, k, dilation, int(depthwise),
+                 _ACT_CODE[act], int(x.dtype == torch.bfloat16),
+                 None if plan is None else ctypes.addressof(plan))
+    if rc != 0:
+        raise RuntimeError(f"conv_chw kernel launch failed: CUDA error {rc}")
+    return out
+
+
 def conv_chw(x, w, bias, acc=None, vec_acc=None, *, k: int,
              dilation: int = 1, depthwise: bool = False, act: str = "relu",
              use_kernels: bool = True):
@@ -248,36 +299,85 @@ def conv_chw(x, w, bias, acc=None, vec_acc=None, *, k: int,
         return conv_chw_plain(x, w, bias, acc, vec_acc, k=k,
                               dilation=dilation, depthwise=depthwise,
                               act=act)
-    b, c, h, wd, cout = _conv_geometry(x, w, bias, acc, vec_acc, k,
-                                       dilation, depthwise, act)
-    if not x.is_contiguous():
-        raise ValueError("conv_chw kernel needs a contiguous x")
-    if acc is not None and (acc.dtype != x.dtype or not acc.is_contiguous()):
-        raise ValueError("conv_chw kernel needs acc contiguous in x's dtype")
-    dev = x.device
-    wk = _on(w, torch.float32 if depthwise else x.dtype, dev)
-    bk = _on(bias, torch.float32, dev)
-    vk = _on(vec_acc, torch.float32, dev)
-    if acc is not None and acc.device != dev:
-        raise ValueError(f"acc on {acc.device}, x on {dev}")
-    out = torch.empty((b, cout, h, wd), dtype=x.dtype, device=dev)
-    from segtpu_torch.kernels._build import load
-    fn = load("conv_chw").segtpu_conv_chw
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = _launch(fn, x, x.data_ptr(), wk.data_ptr(), bk.data_ptr(),
-                 acc.data_ptr() if acc is not None else None,
-                 vk.data_ptr() if vk is not None else None, out.data_ptr(),
-                 b, c, cout, h, wd, k, dilation, int(depthwise),
-                 _ACT_CODE[act], int(x.dtype == torch.bfloat16))
-    if rc != 0:
-        raise RuntimeError(f"conv_chw kernel launch failed: CUDA error {rc}")
+    out = _conv_launch(x, w, bias, acc, vec_acc, k, dilation, depthwise, act)
     conv_chw.launches += 1
     return out
 
 
 conv_chw.launches = 0
+
+
+# A k = 1 dense conv_chw launch (csrc/conv_chw.cu conv1x1_kernel): one warp
+# per group of CO output channels, each thread CO channels x PX pixels of a
+# run of 32 * PX pixels, the input staged through a ring of four chunks.
+_PW_LANES = 32
+_PW_STAGES = 4
+_PW_MAX_GROUPS = 8
+_FOUR_BLOCKS = 228 * 1024 // 4 - 1024     # shared memory for four blocks
+# the thread tile (CO, PX): of the tiles conv1x1_kernel instantiates,
+# (12, 4) is within 2 % of the fastest at both launch shapes of the arch0
+# path (48 -> 48 at 8x128x256, 48 -> 19 at 8x256x512), measured on an
+# H100 by ``pw_resize_probe.py --tiles``
+CONV1X1_TILES = ((12, 4), (8, 8), (4, 16), (20, 2))
+_CONV1X1_TILE = (12, 4)
+_CONV1X1_KC = 32                          # input channels a staged chunk
+
+
+class Conv1x1Plan(NamedTuple):
+    co: int          # output channels a thread accumulates (CO)
+    px: int          # consecutive pixels a thread accumulates (PX)
+    ng: int          # channel groups, one warp each
+    kc: int          # input channels of a staged chunk
+    groups: int      # blocks along Cout, ng * co channels each
+    smem: int        # shared bytes
+
+
+def conv1x1_smem(cin: int, co: int, px: int, ng: int, kc: int,
+                 esize: int) -> int:
+    """Shared bytes of a k = 1 block (csrc/conv_chw.cu ``conv1x1_smem``):
+    the f32 weights [cin][ng * co] and bias [ng * co], then four input
+    chunks [kc][32 * px] of ``esize``-byte elements."""
+    return (4 * (cin + 1) * ng * co
+            + _PW_STAGES * kc * _PW_LANES * px * esize)
+
+
+def conv1x1_plan(cin: int, cout: int, esize: int,
+                 tile=_CONV1X1_TILE) -> Conv1x1Plan:
+    """The layout of a k = 1 dense launch: the thread tile ``tile`` (CO,
+    PX), up to 8 channel groups a block (96 channels: all of Cout 19 and
+    48, so every input byte is read once), 32 input channels a staged
+    chunk. Of the splits of Cout into blocks, the fewest whose shared
+    memory leaves room for four blocks per SM, else one. The sum order
+    does not depend on the plan."""
+    co, px = tile
+    kc = min(cin, _CONV1X1_KC)
+    for limit in (_FOUR_BLOCKS, _SMEM_LIMIT):
+        for groups in range(_cdiv(cout, _PW_MAX_GROUPS * co), cout + 1):
+            ng = _cdiv(_cdiv(cout, groups), co)
+            smem = conv1x1_smem(cin, co, px, ng, kc, esize)
+            if smem <= limit:
+                return Conv1x1Plan(co, px, ng, kc, _cdiv(cout, ng * co),
+                                   smem)
+    raise ValueError(f"conv_chw 1x1: {cin} -> {cout} channels do not fit "
+                     f"shared memory")
+
+
+_conv1x1_plan = functools.lru_cache(maxsize=None)(conv1x1_plan)
+
+
+def vector_ok(ptrs, *sizes) -> bool:
+    """16-byte loads and stores: every size (elements of a row or plane)
+    a multiple of 8 and every data pointer 16-byte aligned."""
+    return all(n % 8 == 0 for n in sizes) and all(p % 16 == 0 for p in ptrs)
+
+
+def conv1x1_args(cin: int, cout: int, hw: int, esize: int, ptrs) -> tuple:
+    """The 7 ints the C entry takes for a k = 1 dense call: the plan's
+    (co, px, ng, kc, groups, smem) and the vector path (1 when a channel
+    plane of ``hw`` pixels and the pointers of x, acc and out allow it)."""
+    p = _conv1x1_plan(cin, cout, esize)
+    return (p.co, p.px, p.ng, p.kc, p.groups, p.smem,
+            int(vector_ok(ptrs, hw) and hw % p.px == 0))
 
 
 # ------------------------------------------------------ inverted residuals

@@ -20,15 +20,99 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from segtpu_torch.core.resize import _interp_matrix
-from segtpu_torch.kernels.chw_ops import (_check_x, _ints, _launch, _on,
-                                          _ptrs, _use_plain,
-                                          pw_chain_chw_plain)
+from segtpu_torch.kernels.chw_ops import (_SMEM_LIMIT, _TWO_BLOCKS, _cdiv,
+                                          _check_x, _ints, _launch, _on,
+                                          _plan_ints, _ptrs, _use_plain,
+                                          pw_chain_chw_plain, vector_ok)
 from segtpu_torch.kernels.upsample_argmax import interp_taps, matrix_taps
+
+# csrc/resize.cu: 256 threads, 4 channel groups x 64 pixel threads, each
+# thread 12 channels x 4 pixels; a block's tile holds 256 output pixels
+_TILE = 256
+_PASS = 48
+_RAW_CHUNK_BYTES = 32           # a raw chunk's bytes per pixel (KC * esize)
+_RAW_STAGES = 3                 # raw chunk buffers
+
+
+class ResizePlan(NamedTuple):
+    rows: int        # R: whole output rows of a tile (1 for a segment)
+    cols: int        # S: output columns of a tile, min(OW, 256)
+    ncol: int        # input columns of a tile's H pass (a multiple of 8)
+    cb: int          # channels of a block
+    kc: int          # raw channels of a staged chunk (0: no chain)
+    smem: int        # shared bytes
+
+
+def resize_ncol(w: int, ow: int, align_corners: bool) -> int:
+    """Input columns a tile's H pass holds: over the tiles' column spans
+    (the whole row, or segments of 256 columns), the most from the first
+    tap's column rounded down to a multiple of 8 to the last tap's rounded
+    up (csrc/resize.cu: ``lo = cols[ox0] & ~7``)."""
+    cols, _ = interp_taps(w, ow, align_corners, ow, False)
+    s = min(ow, _TILE)
+    return max(-(-(int(cols[1, min(x0 + s, ow) - 1]) + 1) // 8) * 8
+               - (int(cols[0, x0]) & ~7) for x0 in range(0, ow, s))
+
+
+def resize_smem(rows: int, ncol: int, cb: int, kc: int, cins, couts,
+                esize: int) -> int:
+    """Shared bytes of a resize block (csrc/resize.cu ``layout``): each
+    stage's f32 weights [cin][cpad] (cpad: cout, or cb for the last stage,
+    rounded up to 48), the H pass [rows][cb][ncol] f32 (to 16 bytes), one
+    stage output [cmax][256] (two for three stages or more) and three raw
+    chunks [kc][256], in ``esize``-byte elements."""
+    nst = len(cins)
+    off = sum(4 * ci * _cdiv(cb if i == nst - 1 else co, _PASS) * _PASS
+              for i, (ci, co) in enumerate(zip(cins, couts)))
+    off += -(-4 * rows * cb * ncol // 16) * 16
+    cmax = max(couts[:-1], default=0)
+    off += min(2, max(nst - 1, 0)) * esize * cmax * _TILE
+    return off + (_RAW_STAGES * kc * _TILE * esize if nst else 0)
+
+
+def resize_plan(c: int, w: int, ow: int, cins, couts, esize: int,
+                align_corners: bool) -> ResizePlan:
+    """The tile of a resize launch to ``ow`` columns from ``w`` with a
+    chain of stages ``cins -> couts`` (empty: none): 256 output pixels, as
+    whole rows where a row holds 256 or fewer, else segments of a row; every
+    channel in one block. Where that does not leave room for two blocks per
+    SM (512 threads), fewer rows a tile, then fewer channels a block (the
+    chain's earlier stages then rerun for each), else one block per SM.
+    The sum order does not depend on the plan."""
+    s = min(ow, _TILE)
+    r_max = _TILE // s if s == ow else 1
+    ncol = resize_ncol(w, ow, align_corners)
+    kc = min(cins[0], _RAW_CHUNK_BYTES // esize) if cins else 0
+    cbs = [c] + list(range((c - 1) // _PASS * _PASS, 0, -_PASS))
+    for limit in (_TWO_BLOCKS, _SMEM_LIMIT):
+        for cb in cbs:
+            for rows in range(r_max, 0, -1):
+                smem = resize_smem(rows, ncol, cb, kc, cins, couts, esize)
+                if smem <= limit:
+                    return ResizePlan(rows, s, ncol, cb, kc, smem)
+    raise ValueError(f"resize_chw: {c} channels at {ow} columns with "
+                     f"stages {list(zip(cins, couts))} do not fit shared "
+                     f"memory")
+
+
+_resize_plan = functools.lru_cache(maxsize=None)(resize_plan)
+
+
+def resize_args(c: int, w: int, ow: int, cins, couts, esize: int,
+                align_corners: bool, ptrs) -> tuple:
+    """The 7 ints the C entry takes: the plan's (R, S, ncol, CB, KC, smem)
+    and the vector path (1 when ``ow`` and ``w`` are multiples of 8 and
+    the pointers of x, out, acc and raw are 16-byte aligned)."""
+    p = _resize_plan(c, w, ow, tuple(cins), tuple(couts), esize,
+                     align_corners)
+    return (p.rows, p.cols, p.ncol, p.cb, p.kc, p.smem,
+            int(vector_ok(ptrs, ow, w)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,25 +217,19 @@ def _device_tables(h: int, w: int, oh: int, ow: int, align_corners: bool,
     return tuple(torch.from_numpy(t).to(device) for t in (rows, rw, cols, cw))
 
 
-def resize_chw(x, out_hw, acc=None, acc_chain=None, *,
-               align_corners: bool = True, use_kernels: bool = True,
-               shard=None):
-    """x [B, C, h, w] -> [B, C, OH, OW] bilinear (torch's
-    ``F.interpolate`` semantics for either ``align_corners``), plus
-    ``acc`` [B, C, OH, OW] or ``acc_chain = (raw [B, C0, OH, OW],
-    [(w OIHW 1x1, f32 bias), ...])``. On a CUDA tensor this launches the
-    kernel (``resize_chw.launches``).
+@functools.lru_cache(maxsize=None)
+def _resize_entry():
+    from segtpu_torch.kernels._build import load
+    fn = load("resize").segtpu_resize
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return fn
 
-    The row-window form, ``shard = (s, n, h)``: x is shard s's window of
-    an H-sharded map of ``h`` rows, its h/n local rows between the
-    ``hu``/``hd`` halo rows of ``shard_interp_bands(h, OH, n,
-    align_corners)``; ``out_hw`` stays the whole target, and the result
-    (and ``acc``, ``acc_chain``) holds the shard's OH/n rows, with the
-    bits of those rows of the unsharded call: the same taps, read at
-    their offset in the window, and the same weights."""
-    if _use_plain(x, use_kernels, "resize_chw"):
-        return resize_chw_plain(x, out_hw, acc, acc_chain,
-                                align_corners=align_corners, shard=shard)
+
+def _resize_launch(x, out_hw, acc, acc_chain, align_corners, shard):
+    """The kernel (csrc/resize.cu) with the plan of ``resize_args``."""
     oh, ow, _, _ = _geometry(x, out_hw, acc, acc_chain, align_corners, shard)
     b, c, h, w = x.shape
     dev, dt = x.device, x.dtype
@@ -171,15 +249,14 @@ def resize_chw(x, out_hw, acc=None, acc_chain=None, *,
     if ws and ws[0].shape[1] != raw.shape[1]:
         raise ValueError(f"acc_chain's first stage takes {ws[0].shape[1]} "
                          f"channels, raw has {raw.shape[1]}")
-    arrays = (_ptrs(ws), _ptrs(bs), _ints([t.shape[1] for t in ws]),
-              _ints([t.shape[0] for t in ws]), _ints([1] * len(ws)))
+    cins, couts = [t.shape[1] for t in ws], [t.shape[0] for t in ws]
+    arrays = (_ptrs(ws), _ptrs(bs), _ints(cins), _ints(couts),
+              _ints([1] * len(ws)))
     out = torch.empty((b, c, oh, ow), dtype=dt, device=dev)
-    from segtpu_torch.kernels._build import load
-    fn = load("resize").segtpu_resize
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    plan = _plan_ints(resize_args(
+        c, w, ow, cins, couts, x.element_size(), align_corners,
+        [t.data_ptr() for t in (x, out, acc, raw) if t is not None]))
+    fn = _resize_entry()
     # the kernel reads rows through its tables alone, so a window with its
     # band of the tables is the whole call to it
     rc = _launch(fn, x, x.data_ptr(), out.data_ptr(), b, c, h, w, oh, ow,
@@ -188,9 +265,32 @@ def resize_chw(x, out_hw, acc=None, acc_chain=None, *,
                  None if raw is None else raw.data_ptr(),
                  0 if raw is None else raw.shape[1],
                  *[ctypes.addressof(a) for a in arrays], len(ws),
-                 int(dt == torch.bfloat16))
+                 int(dt == torch.bfloat16), ctypes.addressof(plan))
     if rc != 0:
         raise RuntimeError(f"resize_chw kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def resize_chw(x, out_hw, acc=None, acc_chain=None, *,
+               align_corners: bool = True, use_kernels: bool = True,
+               shard=None):
+    """x [B, C, h, w] -> [B, C, OH, OW] bilinear (torch's
+    ``F.interpolate`` semantics for either ``align_corners``), plus
+    ``acc`` [B, C, OH, OW] or ``acc_chain = (raw [B, C0, OH, OW],
+    [(w OIHW 1x1, f32 bias), ...])``. On a CUDA tensor this launches the
+    kernel (``resize_chw.launches``).
+
+    The row-window form, ``shard = (s, n, h)``: x is shard s's window of
+    an H-sharded map of ``h`` rows, its h/n local rows between the
+    ``hu``/``hd`` halo rows of ``shard_interp_bands(h, OH, n,
+    align_corners)``; ``out_hw`` stays the whole target, and the result
+    (and ``acc``, ``acc_chain``) holds the shard's OH/n rows, with the
+    bits of those rows of the unsharded call: the same taps, read at
+    their offset in the window, and the same weights."""
+    if _use_plain(x, use_kernels, "resize_chw"):
+        return resize_chw_plain(x, out_hw, acc, acc_chain,
+                                align_corners=align_corners, shard=shard)
+    out = _resize_launch(x, out_hw, acc, acc_chain, align_corners, shard)
     resize_chw.launches += 1
     return out
 
