@@ -12,24 +12,28 @@ Phases, each a hard failure (non-zero exit) when it fails:
 2. front: the front kernel against its plain PyTorch version at
    8x1024x2048 on the card — bf16 and f32 bit-identical.
 3. tail: the upsample+argmax kernel against its plain version on seeded
-   bf16 logits [8,19,256,512] -> 1024x2048, uncropped and cropped to
-   1000x2000 (and f32 uncropped): masks identical on >= 99.99 % of
-   pixels, every mismatch a near-tie (top-2 f32 logits within 1e-3 of
-   max(|top1|, 1)).
+   bf16 logits [8,19,256,512] -> 1024x2048, uncropped, cropped to
+   1000x2000, at align_corners False and in f32, and on one frame's
+   [19,256,384] -> 1024x1536 cropped to the pad path's 1000x1500 (a
+   ragged width): masks bit for bit (tail_cases).
 4. encoder: the folded arch0 encoder (seeded weights, BatchNorm
    perturbed and folded) stage by stage on the front's output for the
    seeded b8 frames: each of the 18 launches of the main path (stem
    conv_chw, 13 inv_res_chw, 4 inv_res_s2_chw, every served bf16 block
    on the CUDA cores, whose sums give the twins' bits) against its plain
-   twin on the same input, bf16: >= 99 % of output elements
-   bit-identical and the worst error <= 1e-2 of max(|ref|, 1). Each block
+   twin on the same input, bf16: the stem bit for bit, each block >= 99 %
+   of output elements bit-identical and the worst error <= 1e-2 of
+   max(|ref|, 1). Each block
    is also run on the tensor-core kernel (inv_res_tc_chw, which no
    serving path calls) and held to its twin at the same tolerance, which
    that kernel's own f32 sum order needs. The served kernel's output
-   feeds the next stage. Then every stage in f32 at 2x128x256 (rtol =
-   atol = 1e-4), and conv_chw's other forms (k = 1 bit for bit) and
-   odd-sized blocks at small shapes, f32 and bf16 (bf16 on both kernels;
-   Cin 24, and a stride-2
+   feeds the next stage. Then every stage in f32 at 2x128x256 (the stem
+   bit for bit, the blocks at rtol = atol = 1e-4), and conv_chw's other
+   forms (k = 1 and 2 bit for bit; the stem's and the tail's forms of
+   stem_tail_probe.forms and the stem on a shard's window of rows, whose
+   rows must equal the whole input's, bit for bit) and odd-sized blocks
+   at small shapes, f32 and bf16 (bf16 on both kernels; Cin 24, and a
+   stride-2
    block on a shard's rows with its 2-row halo, whose rows must equal the
    whole input's). Each launch is timed in turns with, for a block, the
    tensor-core kernel, and a cuDNN yardstick (F.conv2d with the folded
@@ -89,7 +93,9 @@ Phases, each a hard failure (non-zero exit) when it fails:
    fall under MASK_FLOOR with any block shape on the tensor cores): the
    engine is also run with the blocks of one shape at a time on the
    tensor-core kernel (on_tensor_cores), then all of them, its masks
-   against the plain twins' printed, and the last timed.
+   against the plain twins' printed, and the last timed. The stem's and
+   the tail's timing lines print their bounds (the stem's bytes bound and
+   its f32 FMA floor).
 
 8. sharded: four logical shards on the one card (devices = [cuda:0] * 4,
    run one after another). upsample_argmax_sharded on the tail phase's
@@ -99,8 +105,9 @@ Phases, each a hard failure (non-zero exit) when it fails:
    frames (the sharded path: counts reset just before, read just after,
    SPACE_LAUNCHES): masks >= 99.9 % equal to the unsharded engine's
    (arch0's pool branch sums its mean per shard), encoder taps
-   bit-equal, and so with every block on the tensor cores (taps and the
-   data mode's masks). Every kernel call of the sharded decoder on that path
+   bit-equal, each shard's stem launch (its rows and the halo row above)
+   bit for bit its twin and the unsharded stem's rows, and so with every
+   block on the tensor cores (taps and the data mode's masks). Every kernel call of the sharded decoder on that path
    (quarter-height windows with their halos, resize_chw's row-window
    form) is recorded and replayed against its plain twin as in phase 5,
    and the whole sharded call is run again on the plain twins
@@ -132,13 +139,17 @@ last, {"ok": true, "device": {...}}. Writes chiprun_out/chip_smoke.json.
 --control BITS runs a control instead of the phases: the bf16
 tensor-core node, 1x1 and inverted-residual kernels' outputs (cell.cu's
 node_tc_kernel, pointwise.cu's pw_tc_kernel, inv_res.cu's
-inv_res_tc_kernel), and conv_chw's k = 1 and resize_chw's outputs (bf16
-and f32), rounded once more, to BITS significant bits, and the checks
+inv_res_tc_kernel), and conv_chw's k = 1 and k = 2 (the stem) and
+resize_chw's outputs (bf16 and f32), rounded once more, to BITS
+significant bits, and the tail kernel's input likewise, and the checks
 that hold those kernels at a tolerance (phase 4's 17 block stages, phase
 5's calls, encoder taps and f32 reference, phase 6's arch0 and G2 masks,
 phase 8's shard logits) or bit for bit (conv_chw k = 1 and resize_chw at
 every launch of phase 5's main, G2 and f32 paths, the forms, and phase
-8's sharded decoder) run on it. It exits 0 when every one of them fails.
+8's sharded decoder; the stem at phase 4's b8 and f32 launches, its
+forms and window, phase 8's four shard launches; the tail's phase 3
+cases and forms, and phase 8's unsharded rows) run on it. It exits 0
+when every one of them fails.
 """
 
 from __future__ import annotations
@@ -231,49 +242,34 @@ def phase_front(torch):
     return img, res["torch.bfloat16"]
 
 
-def near_tie_ok(logits, out_hw, crop_hw, got, want) -> int:
-    """Check every mismatched pixel is a near-tie; returns the count."""
-    from segtpu_torch.kernels.upsample_argmax import interp_taps
-    diff = (got != want).nonzero().cpu().numpy()
-    if len(diff) == 0:
-        return 0
-    h, w = logits.shape[-2:]
-    ho, wo = crop_hw or out_hw
-    rows, rw = interp_taps(h, out_hw[0], True, ho, False)
-    cols, cw = interp_taps(w, out_hw[1], True, wo, False)
-    lg = logits.float().cpu().numpy().astype(np.float64)
-    for b, y, x in diff[:10000]:
-        v = sum(rw[i, y] * cw[j, x] * lg[b, :, rows[i, y], cols[j, x]]
-                for i in range(2) for j in range(2))
-        top = np.sort(v)[::-1]
-        if top[0] - top[1] > 1e-3 * max(abs(top[0]), 1.0):
-            fail(f"tail mismatch at {(b, y, x)} is not a near-tie: {top[:2]}")
-    return len(diff)
+def tail_cases(torch, logits):
+    """[(what, fn(use_kernels))]: phase 3's tail calls on the seeded
+    logits: uncropped, cropped to 1000x2000, at align_corners False, in
+    f32, and the pad path's 1000x1500 crop of a 1024x1536 grid (a ragged
+    width: the scalar store path)."""
+    from segtpu_torch.kernels.upsample_argmax import upsample_argmax
+    pad = logits[:1, :, :, :W // 4 * 3 // 4].contiguous()   # 256 x 384
+    cases = [("bf16", logits, (H, W), None, True),
+             ("bf16 crop", logits, (H, W), (H - 24, W - 48), True),
+             ("bf16 align_corners=False", logits, (H, W), None, False),
+             ("f32", logits.float(), (H, W), None, True),
+             ("bf16 pad crop", pad, (H, W * 3 // 4), (H - 24, W * 3 // 4 - 36),
+              True)]
+    return [(f"tail {what} {tuple(x.shape)} -> {grid} crop={crop}",
+             lambda uk, x=x, grid=grid, crop=crop, ac=ac: upsample_argmax(
+                 x, grid, crop_hw=crop, align_corners=ac, use_kernels=uk))
+            for what, x, grid, crop, ac in cases]
 
 
 def phase_tail(torch):
-    from segtpu_torch.kernels.upsample_argmax import (upsample_argmax,
-                                                      upsample_argmax_plain)
     g = torch.Generator(device="cuda").manual_seed(2)
     logits = torch.randn((N, K, H // 4, W // 4), generator=g,
                          device="cuda").to(torch.bfloat16)
-    worst = 0
-    cases = [(logits, None), (logits, (H - 24, W - 48)),
-             (logits.float(), None)]
-    for x, crop in cases:
-        got = upsample_argmax(x, (H, W), crop_hw=crop)
-        want = upsample_argmax_plain(x, (H, W), crop_hw=crop)
-        torch.cuda.synchronize()
-        ho, wo = crop or (H, W)
-        check(got.shape == want.shape == (N, ho, wo) and got.dtype == torch.uint8,
-              f"tail shape {tuple(got.shape)}")
-        rate = (got == want).float().mean().item()
-        n_bad = near_tie_ok(x, (H, W), crop, got, want)
-        print(f"[tail] {x.dtype} crop={crop}: agreement={rate!r} "
-              f"mismatches={n_bad}")
-        check(rate >= 0.9999, f"tail agreement {rate} < 99.99 %")
-        worst = max(worst, (got.int() - want.int()).abs().max().item())
-    return logits, worst
+    for what, fn in tail_cases(torch, logits):
+        got = fn(True)
+        check(got.dtype == torch.uint8, f"{what}: mask of {got.dtype}")
+        _exact(torch, got, fn(False), what)
+    return logits, 0
 
 
 def _compare(torch, got, want, what):
@@ -301,13 +297,13 @@ def _compare(torch, got, want, what):
 
 def _exact(torch, got, want, what):
     """got bit for bit equal to its twin's want (shape, dtype, every
-    bit): the CUDA-core kernels that sum in the twins' order. Returns the
-    worst absolute error (0.0)."""
+    bit): the CUDA-core kernels that sum in the twins' order, and the
+    tail's masks. Returns the worst absolute error (0.0)."""
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{what}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
           f"{want.dtype}")
     check(bool(torch.isfinite(got.float()).all()), f"{what}: non-finite output")
-    view = torch.int16 if got.element_size() == 2 else torch.int32
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[got.element_size()]
     same = torch.equal(got.view(view), want.view(view))
     err = (got.float() - want.float()).abs().max().item()
     print(f"[check] {what}: bit-identical={same} max_abs_err={err!r}")
@@ -457,8 +453,9 @@ def phase_encoder(torch, img):
             want = fn(y, False)
             torch.cuda.synchronize()
             r = res[name]
+            held = _exact if name == "conv_chw" else _compare   # the stem
             r["max_abs_err"] = max(r["max_abs_err"],
-                                   _compare(torch, got, want, what))
+                                   held(torch, got, want, what))
             arms = {"ms": lambda: fn(y, True), "lib": lambda: lib(y)}
             if tc is not None:
                 # the tensor-core kernel, which no serving path calls
@@ -475,7 +472,9 @@ def phase_encoder(torch, img):
                   + (f" (CUDA cores; tensor cores {t['tc']:.4f} ms)"
                      if tc else "")
                   + f", plain {plain_ms:.4f} ms, cuDNN yardstick "
-                  f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+                  f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})"
+                  + ("" if tc else f", f32 FMA floor "
+                     f"{dot / F32_FMA_MEASURED_FLOP_PER_S * 1e3:.4f} ms"))
             stage_ms.append((name, list(y.shape), ms, plain_ms, lib_ms,
                              t.get("tc"), bms))
             for key, v in (("ms", ms), ("plain_ms", plain_ms),
@@ -494,10 +493,48 @@ def phase_encoder(torch, img):
                                 out_dtype=torch.float32)
         for i, (name, fn, *_) in enumerate(encoder_stages(enc32)):
             got = fn(y, True)
-            _compare(torch, got, fn(y, False), f"f32 stage {i:2d} {name}")
+            (_exact if name == "conv_chw" else _compare)(
+                torch, got, fn(y, False), f"f32 stage {i:2d} {name}")
             y = got
         phase_kernel_forms(torch)
     return res, stage_ms
+
+
+def stem_tail_forms(torch):
+    """[(what, fn(use_kernels))]: the stem's (conv_chw k = 2) and the
+    tail's other forms at odd sizes, bf16 and f32 (stem_tail_probe.forms:
+    ragged widths, a plane off a 16-byte boundary, C 7-48, Cout 8-100,
+    acc and vec_acc, a window of rows; the tail at a ragged crop,
+    align_corners False, an odd scale, 150 classes in chunks)."""
+    from segtpu_torch.kernels.pw_resize_probe import seeded
+    from segtpu_torch.kernels.stem_tail_probe import forms
+    return forms(torch, seeded(torch, 12))
+
+
+def stem_window_checks(torch):
+    """[(what, check())]: the stem on a window of rows as the sharded stem
+    feeds it (a shard's 16 rows and the halo row above them), bit for bit
+    its twin, and its rows but the first the whole input's rows, bf16
+    and f32."""
+    from segtpu_torch.kernels.chw_ops import conv_chw
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn((2, 12, 64, 96), generator=g, device="cuda")
+    wt = torch.randn((32, 12, 2, 2), generator=g, device="cuda") * 0.2
+    b = torch.randn(32, generator=g, device="cuda") * 0.1
+    out = []
+    for dt in (torch.bfloat16, torch.float32):
+        def run(dt=dt):
+            xd, wd = x.to(dt), wt.to(dt)
+            whole = conv_chw(xd, wd, b, k=2, act="relu6")
+            win = xd[:, :, 15:32].contiguous()
+            got = conv_chw(win, wd, b, k=2, act="relu6")
+            what = f"stem window rows 15..31 of 64x96 {dt}"
+            _exact(torch, got, conv_chw(win, wd, b, k=2, act="relu6",
+                                        use_kernels=False), what)
+            check(torch.equal(got[:, :, 1:], whole[:, :, 16:32]),
+                  f"{what}: rows differ from the whole input's rows")
+        out.append((f"stem window {dt}", run))
+    return out
 
 
 def phase_kernel_forms(torch):
@@ -538,7 +575,7 @@ def phase_kernel_forms(torch):
             args = (x.to(dt), w if dw else w.to(dt), b,
                     None if acc is None else acc.to(dt), vec)
             kw = dict(k=k, dilation=dil, depthwise=dw, act=act)
-            (_exact if k == 1 and not dw else _compare)(
+            (_exact if k in (1, 2) and not dw and dil == 1 else _compare)(
                 torch, conv_chw(*args, **kw),
                      conv_chw(*args, **kw, use_kernels=False),
                      f"conv_chw k={k} dil={dil} dw={dw} {act} acc={use_acc} "
@@ -552,6 +589,10 @@ def phase_kernel_forms(torch):
         (1, 160, 6, 320, False, 3, 5),
         (1, 24, 6, 24, True, 13, 21),      # Cin 24: K padded to 32
     ]
+    for what, fn in stem_tail_forms(torch):
+        _exact(torch, fn(True), fn(False), what)
+    for what, fn in stem_window_checks(torch):
+        fn()
     for stride, cin, t, cout, residual, h, w in block_cases:
         cmid = cin * t
         wts = ((rnd(cmid, cin, 1, 1, scale=0.2), rnd(cmid, scale=0.1))
@@ -1421,19 +1462,20 @@ def phase_timing(torch, img, logits, seg, ref, frames, gaps):
     t["slice_b8_plain_kernels"] = cuda_ms(lambda: ref.predict_batch(x), 5)
     t["slice_b8_tensor_core_encoder"] = tensor_core_encoder(
         torch, seg, ref, frames, gaps)
+    tail_bound, tail_by = bounds({})["upsample_argmax"]
     for k, v in t.items():
-        print(f"[timing] {k}: {v:.4f} ms")
+        print(f"[timing] {k}: {v:.4f} ms" + (
+            f" (bound {tail_bound:.4f} ms, {tail_by})" if k == "tail" else ""))
     print(f"[timing] slice b8: {N * 1000.0 / t['slice_b8']:.1f} images/s "
           f"device-resident")
     return t
 
 
-def sharded_tail(torch, logits):
-    """upsample_argmax_sharded on the tail phase's logits: every shard at
+def sharded_tail_rows(torch, logits) -> int:
+    """upsample_argmax_sharded on the tail phase's logits, every shard at
     n = 2, 4, 8, bf16 and f32, bit for bit against its plain twin and
-    against the unsharded kernel's rows; the N_SHARDS shards timed.
-    Returns the kernel's row of the kernels line, without its launches."""
-    import torch.nn.functional as F
+    against the unsharded kernel's rows; returns the worst difference of
+    mask values (0)."""
     from segtpu_torch.kernels.upsample_argmax import (
         upsample_argmax, upsample_argmax_sharded,
         upsample_argmax_sharded_plain)
@@ -1459,6 +1501,18 @@ def sharded_tail(torch, logits):
                       f"unsharded kernel's rows")
         print(f"[sharded] tail {x.dtype}: every shard at n=2,4,8 bit-identical "
               f"to its twin and to the unsharded rows")
+    return worst
+
+
+def sharded_tail(torch, logits):
+    """upsample_argmax_sharded on the tail phase's logits: the checks of
+    ``sharded_tail_rows``, then the N_SHARDS shards timed. Returns the
+    kernel's row of the kernels line, without its launches."""
+    import torch.nn.functional as F
+    from segtpu_torch.kernels.upsample_argmax import (
+        upsample_argmax_sharded, upsample_argmax_sharded_plain)
+    from segtpu_torch.parallel import halo_exchange
+    worst = sharded_tail_rows(torch, logits)
     n, rows = N_SHARDS, H // N_SHARDS
     r = dict(max_abs_err=worst, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0,
              dot=0, f32=0, n=n, per_shard_ms=[])
@@ -1503,6 +1557,34 @@ def shard_logits_hold(torch, logits_k, want_logits):
               f"largest")
 
 
+def sharded_stem_checks(torch, seg, x):
+    """[(what, check())]: each shard's stem launch of an H-sharded b8 call
+    (its rows of the space-to-depth planes and, but for the first shard,
+    the halo row above them, as mbv2_chw_sharded feeds it), bit for bit
+    its twin, and its rows but the halo's the unsharded stem's rows."""
+    from segtpu_torch.kernels.front import normalize_s2d_front
+    from segtpu_torch.parallel import halo_exchange
+    n = N_SHARDS
+    with torch.inference_mode():
+        x12 = normalize_s2d_front(x)
+        whole = seg.encoder.stem(x12)
+    rows = x12.shape[2] // n
+    ext = halo_exchange(list(x12.split(rows, dim=2)), 1, 0, ends=False)
+    out = []
+    for s_, e in enumerate(ext):
+        def run(s_=s_, e=e.contiguous()):
+            what = f"sharded stem shard {s_}/{n} {tuple(e.shape)}"
+            with torch.inference_mode():
+                got = seg.encoder.stem(e)
+                _exact(torch, got, seg.encoder.stem(e, False), what)
+            top = 1 if s_ > 0 else 0
+            check(torch.equal(got[:, :, top:],
+                              whole[:, :, s_ * rows:(s_ + 1) * rows]),
+                  f"{what}: rows differ from the unsharded stem's")
+        out.append((f"sharded stem shard {s_}", run))
+    return out
+
+
 def phase_sharded(torch, seg, ref, frames, masks, gaps, t):
     """Phase 8 (see the module doc). Returns the sharded path's launch
     counts; adds its times to ``t``."""
@@ -1541,6 +1623,8 @@ def phase_sharded(torch, seg, ref, frames, masks, gaps, t):
         check(torch.equal(torch.cat(tap, dim=2), whole),
               f"sharded encoder tap {i} differs from the unsharded tap")
     print("[sharded] arch0 encoder taps: 4 bit-equal")
+    for _, run in sharded_stem_checks(torch, seg, x):
+        run()
     # the tensor-core encoder (not the served route): its taps and the
     # data-mode masks bit-equal too, the plan changing with the rows
     with on_tensor_cores(seg.encoder):
@@ -1880,11 +1964,14 @@ def coarse_decoder(torch, bits: int):
     on about half the elements at bits = 7, where the tensor-core kernels
     differ from their twins by one rounding on a few elements in a
     thousand. The bf16 node, 1x1 and inverted-residual kernels
-    (``cell.cu``, ``pointwise.cu``, ``inv_res.cu``), and conv_chw's k = 1
-    dense kernel and resize_chw's kernel in bf16 and f32."""
+    (``cell.cu``, ``pointwise.cu``, ``inv_res.cu``), conv_chw's k = 1 and
+    k = 2 (the stem's) dense kernels and resize_chw's kernel in bf16 and
+    f32; and the tail kernel's input, a rounded copy of the logits, so
+    that its masks are those of other logits."""
     import importlib
     from segtpu_torch.kernels import chw_ops
     rz = importlib.import_module("segtpu_torch.kernels.resize_chw")
+    ua = importlib.import_module("segtpu_torch.kernels.upsample_argmax")
 
     def coarsen(out, bf16_only=True):
         if out.dtype == torch.bfloat16 or not bf16_only:
@@ -1898,11 +1985,17 @@ def coarse_decoder(torch, bits: int):
             return coarsen(launch(*args, **kw))
         return run
 
-    def coarse_1x1(launch):
+    def coarse_conv(launch):
         def run(x, w, bias, acc, vec_acc, k, dilation, depthwise, act):
             out = launch(x, w, bias, acc, vec_acc, k, dilation, depthwise,
                          act)
-            return coarsen(out, False) if k == 1 and not depthwise else out
+            exact = not depthwise and (k == 1 or (k == 2 and dilation == 1))
+            return coarsen(out, False) if exact else out
+        return run
+
+    def coarse_tail(launch):
+        def run(logits, *args):
+            return launch(coarsen(logits.clone(), False), *args)
         return run
 
     def coarse_resize(launch):
@@ -1912,8 +2005,9 @@ def coarse_decoder(torch, bits: int):
 
     patches = [(chw_ops, n, coarse) for n in
                ("_node_launch", "_pw_launch", "_inv_res_tc_launch")]
-    patches += [(chw_ops, "_conv_launch", coarse_1x1),
-                (rz, "_resize_launch", coarse_resize)]
+    patches += [(chw_ops, "_conv_launch", coarse_conv),
+                (rz, "_resize_launch", coarse_resize),
+                (ua, "_tail_launch", coarse_tail)]
     saved = [(mod, n, getattr(mod, n)) for mod, n, _ in patches]
     for mod, n, make in patches:
         setattr(mod, n, make(getattr(mod, n)))
@@ -1975,8 +2069,35 @@ def phase_control(torch, bits: int) -> dict:
                     res[f"stage {i:2d} {name} tensor cores vs its twin"] = \
                         must_fail(f"stage {i:2d} {name}", lambda: _compare(
                             torch, tc(y), fn(y, False), f"stage {i}"))
+                else:                                   # the stem
+                    res[f"stage {i:2d} {name} vs its twin"] = must_fail(
+                        f"stage {i:2d} {name}", lambda: _exact(
+                            torch, fn(y, True), fn(y, False), f"stage {i}"))
                 y = fn(y, True)
-        del enc, y, img
+            # the f32 stem, phase 4's forms of the stem and the tail, the
+            # stem on a shard's window, phase 3's tail cases
+            enc32 = fold_encoder(make_model(torch).encoder,
+                                 torch.float32).to("cuda")
+            y = normalize_s2d_front(img[:2, :128, :256].contiguous(),
+                                    out_dtype=torch.float32)
+            res["f32 stage  0 conv_chw vs its twin"] = must_fail(
+                "f32 stem", lambda: _exact(torch, enc32.stem(y),
+                                           enc32.stem(y, False), "f32 stem"))
+            for what, fn in stem_tail_forms(torch):
+                res[f"form {what} vs its twin"] = must_fail(
+                    what, lambda: _exact(torch, fn(True), fn(False), what))
+            for what, run in stem_window_checks(torch):
+                res[f"{what} vs its twin and the whole rows"] = must_fail(
+                    what, run)
+            g = torch.Generator(device="cuda").manual_seed(2)
+            logits = torch.randn((N, K, H // 4, W // 4), generator=g,
+                                 device="cuda").to(torch.bfloat16)
+            for what, fn in tail_cases(torch, logits):
+                res[f"{what} vs its twin"] = must_fail(
+                    what, lambda: _exact(torch, fn(True), fn(False), what))
+            res["sharded tail vs the unsharded kernel's rows"] = must_fail(
+                "sharded tail rows", lambda: sharded_tail_rows(torch, logits))
+        del enc, enc32, y, img, logits
         model, dec, img, taps, logits, calls = decoder_calls(
             torch, ARCHS["arch0"], (H, W), torch.bfloat16, N)
         res["tensor-core encoder vs the f32 cuDNN run, against the twins'"] = \
@@ -2036,6 +2157,8 @@ def phase_control(torch, bits: int) -> dict:
             res["space shard logits vs the plain twins"] = must_fail(
                 "space logits", lambda: shard_logits_hold(torch, got, want))
             del got, want
+            for what, run in sharded_stem_checks(torch, seg, x):
+                res[f"{what} vs its twin"] = must_fail(what, run)
             # the sharded decoder's conv_chw k = 1 and resize_chw calls
             _, calls = record_decoder(torch, sh.decoder,
                                       sh.infer_shards(x, return_taps=True))
@@ -2066,6 +2189,7 @@ def main() -> None:
     if "--control" in sys.argv[1:]:
         bits = int(sys.argv[sys.argv.index("--control") + 1])
         res = phase_control(torch, bits)
+        print(f"[control] {sum(res.values())} of {len(res)} checks fail")
         print(gpu_line())
         print(json.dumps({"control_bits": bits, "checks": res}))
         sys.exit(0 if all(res.values()) else 1)

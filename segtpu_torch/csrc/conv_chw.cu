@@ -19,13 +19,15 @@
 //
 // Bound on the H100, bytes for both forms on the main path. The s2d stem,
 // k = 2, 12 -> 32 channels at 8 x 512 x 1024: 101 MB read + 268 MB written
-// (0.11 ms at 3.35 TB/s) and 12.9 GFLOP of products (0.013 ms at the bf16
-// tensor-core rate, 0.19 ms in f32 on the CUDA cores this version uses).
+// (0.11 ms at 3.35 TB/s) and 6.44 G multiply-adds (0.013 ms at the bf16
+// tensor-core rate; 0.217 ms as f32 FMAs at the 59.5 TFLOP/s measured on
+// the card, the floor of a design that keeps the twin's sum order).
 // The decoder's three 1x1s (48 -> 48 at 8 x 64 x 128 and 8 x 128 x 256,
 // 48 -> 19 at 8 x 256 x 512): 203 MB (0.061 ms) and 1.71 G multiply-adds
 // (0.058 ms at the 59.5 TFLOP/s f32 FMA rate measured on the card).
 //
-// k > 1 (conv_dense_kernel, conv_depthwise_kernel), a simple first version:
+// k = 3, 5 and dilated k = 2 dense, and every depthwise form
+// (conv_dense_kernel, conv_depthwise_kernel), a simple first version:
 // a block owns an 8 x 32 output tile of one image and a group of COB output
 // channels (dense) or CC channels (depthwise). It stages a chunk of input
 // channels, tile plus halo, in shared memory as f32 with the zero padding
@@ -33,6 +35,26 @@
 // one thread per output pixel reads one input value per tap and a 4-wide
 // weight vector broadcast to the warp for every 4 output channels it
 // accumulates in registers. Every input value staged is reused COB times.
+//
+// k = 2 dense at dilation 1, the stem (conv_k2_kernel): the multiply-adds
+// bound it, so every instruction beside them counts. A block takes up to
+// eight channel groups (all 32 channels of the stem) over row segments of S = 32 *
+// PX * np pixels of one image (two segments of 512 a stem row). One warp
+// per group of CO channels and segment part, each thread a register tile
+// of CO channels x PX consecutive pixels (8 x 8 for the stem: 256
+// multiply-adds per input channel against two 16-byte reads of its two
+// input rows, two shuffles for the pixel left of its tile and eight
+// 16-byte weight broadcasts). The block is persistent: its f32 weights
+// [c][tap][channel] and biases are staged once, then it walks items (an
+// output row segment) blockIdx.x, + gridDim.x, ... of all images, each
+// item's input chunks of kc channels one step of a ring of four buffers
+// filled by 16-byte cp.async in x's dtype, three steps ahead across items:
+// rows y - 1 and y of the chunk, the segment plus one 16-byte chunk of
+// halo on its left, zero outside the image. The epilogue stores PX pixels
+// of a channel as one 16-byte store. stem_plan (kernels/chw_ops.py) picks
+// (CO, PX, ng, np, kc) and the C entry checks it against conv_k2_smem. A
+// width that is not a multiple of 8, or a plane that is not 16-byte
+// aligned, takes scalar loads and stores, cut at the ragged right edge.
 //
 // k = 1 dense (conv1x1_kernel): no halo, so a block takes up to 96 output
 // channels (all of Cout 19 and 48) over runs of 32 * PX pixels of one image
@@ -402,12 +424,227 @@ int run_1x1(const ConvArgs& a, const Plan1x1& p, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------- k = 2
+
+constexpr int k2Lanes = 32;     // pixel threads of a warp
+constexpr int k2MaxWarps = 8;   // channel groups x segment parts of a block
+constexpr int k2Stages = 4;     // chunk buffers: three in flight, one read
+
+// The plan of a dense k = 2 launch at dilation 1 (kernels/chw_ops.py
+// stem_plan): CO channels x PX pixels a thread, ng channel groups x np
+// segment parts, one warp each (a block's ng * CO channels over row
+// segments of S = np * 32 * PX pixels), kc input channels a staged chunk,
+// `groups` blocks along Cout, `smem` bytes; vec: the 16-byte path.
+struct PlanK2 {
+  int co, px, ng, np, kc, groups, smem, vec;
+};
+
+// Elements of a staged row: one 16-byte chunk of halo, then the segment.
+inline int k2_row(const PlanK2& p, int elt) {
+  return 16 / elt + p.np * k2Lanes * p.px;
+}
+
+// Shared bytes of a plan: the f32 weights [C][4][ng * CO] and bias
+// [ng * CO], then k2Stages chunks [kc][2][k2_row] of the input in T.
+inline int conv_k2_smem(int C, const PlanK2& p, int elt) {
+  return 4 * (4 * C + 1) * p.ng * p.co +
+         k2Stages * p.kc * 2 * k2_row(p, elt) * elt;
+}
+
+// Starts copying input rows y - 1 and y of channels [0, cc) of src (one
+// image's [C][H][W], offset to the chunk's first channel), columns
+// [x0 - E, x0 - E + SR), into dst [cc][2][SR], zero outside the image (E:
+// the elements of 16 bytes). One warp per staged row. vec: 16-byte
+// cp.async (W a multiple of 8, src 16-byte aligned, x0 a multiple of E),
+// to be committed and waited for by the caller; else plain loads and
+// stores, visible after the next barrier.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int SR, const T* src,
+                                           int H, int W, int y, int x0,
+                                           int cc, bool vec, int NT) {
+  constexpr int E = 16 / sizeof(T);
+  const int lane = threadIdx.x % k2Lanes;
+  for (int row = threadIdx.x / k2Lanes; row < 2 * cc; row += NT / k2Lanes) {
+    const int gy = y - 1 + (row & 1);
+    const long long base = ((long long)(row >> 1) * H + gy) * W;
+    T* d = dst + row * SR;
+    if (vec) {
+      for (int j = lane * E; j < SR; j += k2Lanes * E) {
+        const int gx = x0 - E + j;
+        const bool in = gy >= 0 && gx >= 0 && gx < W;
+        cp_async16(d + j, in ? src + base + gx : src, in ? 16 : 0);
+      }
+    } else {
+      for (int j = lane; j < SR; j += k2Lanes) {
+        const int gx = x0 - E + j;
+        d[j] = gy >= 0 && gx >= 0 && gx < W ? src[base + gx]
+                                             : from_f32<T>(0.f);
+      }
+    }
+  }
+}
+
+// acc[o][k] += w[o] * (LEFT ? the pixel left of k : pixel k) of one input
+// row; v holds the row at the thread's PX pixels, left the one before them.
+template <typename T, int CO, int PX, bool LEFT>
+__device__ __forceinline__ void k2_tap(float (&acc)[CO][PX], const float* w,
+                                       float left, const float (&v)[PX]) {
+  const float4* wp = reinterpret_cast<const float4*>(w);
+#pragma unroll
+  for (int q = 0; q < CO / 4; ++q) {
+    const float4 wv = wp[q];
+#pragma unroll
+    for (int k = 0; k < PX; ++k) {
+      const float xv = LEFT ? (k == 0 ? left : v[k > 0 ? k - 1 : 0]) : v[k];
+      acc[4 * q + 0][k] = mac<T>(acc[4 * q + 0][k], wv.x, xv);
+      acc[4 * q + 1][k] = mac<T>(acc[4 * q + 1][k], wv.y, xv);
+      acc[4 * q + 2][k] = mac<T>(acc[4 * q + 2][k], wv.z, xv);
+      acc[4 * q + 3][k] = mac<T>(acc[4 * q + 3][k], wv.w, xv);
+    }
+  }
+}
+
+// A persistent block: its channel group's weights and biases staged once,
+// then the items blockIdx.x, + gridDim.x, ... (item: image b, output row
+// y, segment x0 = seg * S; seg fastest), each item's input chunks one step
+// of a ring of k2Stages buffers that never drains between items. For each
+// input channel of a chunk, ascending, the four taps (-1, -1), (-1, 0),
+// (0, -1), (0, 0) in turn: the twin's order.
+template <typename T, int CO, int PX>
+__global__ void __launch_bounds__(k2Lanes * k2MaxWarps, 2)
+    conv_k2_kernel(ConvArgs a, PlanK2 p) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int E = 16 / sizeof(T);
+  const int S = p.np * k2Lanes * PX, SR = E + S, slot = p.kc * 2 * SR;
+  const int nt = k2Lanes * p.ng * p.np, cpb = p.ng * CO;
+  float* w_s = smem;                                     // [C][4][cpb]
+  float* b_s = smem + 4 * a.C * cpb;                     // [cpb]
+  T* x_s = reinterpret_cast<T*>(b_s + cpb);              // ring [kc][2][SR]
+  const int warp = threadIdx.x / k2Lanes, lane = threadIdx.x % k2Lanes;
+  const int g = warp % p.ng;
+  const int pix = (warp / p.ng) * k2Lanes * PX + lane * PX;
+  const int co0 = blockIdx.y * cpb, cg = co0 + g * CO;
+  const bool vec = p.vec != 0, busy = cg < a.Cout;   // busy: warp-uniform
+  const long long hw = (long long)a.H * a.W;
+  const int nseg = (a.W + S - 1) / S, items = a.B * a.H * nseg;
+  const int nch = (a.C + p.kc - 1) / p.kc;
+  const int mine = items > (int)blockIdx.x
+                       ? (items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                       : 0;
+  const int steps = mine * nch;
+  const T* x = static_cast<const T*>(a.x);
+
+  // step s: chunk s % nch of the block's item s / nch
+  auto item_of = [&](int s, int& b, int& y, int& x0) {
+    const int item = blockIdx.x + (s / nch) * gridDim.x;
+    const int row = item / nseg;
+    x0 = (item - row * nseg) * S;
+    b = row / a.H;
+    y = row - b * a.H;
+  };
+  auto issue = [&](int s) {
+    if (s < steps) {
+      int b, y, x0;
+      item_of(s, b, y, x0);
+      const int k = s % nch;
+      stage_rows<T>(x_s + (s % k2Stages) * slot, SR,
+                    x + ((size_t)b * a.C + k * p.kc) * hw, a.H, a.W, y, x0,
+                    min(p.kc, a.C - k * p.kc), vec, nt);
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < k2Stages - 1; ++s) issue(s);
+  const T* w = static_cast<const T*>(a.w);
+  for (int i = threadIdx.x; i < 4 * a.C * cpb; i += nt) {
+    const int o = i % cpb, ct = i / cpb;          // ct = c * 4 + tap
+    w_s[i] = co0 + o < a.Cout ? to_f32(w[(size_t)(co0 + o) * 4 * a.C + ct])
+                              : 0.f;
+  }
+  for (int i = threadIdx.x; i < cpb; i += nt)
+    b_s[i] = co0 + i < a.Cout ? a.bias[co0 + i] : 0.f;
+  float acc[CO][PX];
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<k2Stages - 2>();    // step s has landed
+    __syncthreads();                  // ... for every thread; s - 1 is read
+    issue(s + k2Stages - 1);
+    const int k = s % nch;
+    if (k == 0) zero(acc);
+    if (busy) {
+      const T* xs = x_s + (s % k2Stages) * slot + E + pix;
+      const float* wk = w_s + 4 * k * p.kc * cpb + g * CO;
+      const int cc = min(p.kc, a.C - k * p.kc);
+      for (int c = 0; c < cc; ++c) {
+        const T* r0 = xs + 2 * c * SR;     // row y - 1; row y is r0 + SR
+        float u[PX], v[PX];
+        load_px<PX>(r0, u);
+        load_px<PX>(r0 + SR, v);
+        // the pixel left of the tile: the next lane's last, or staged
+        float ul = __shfl_up_sync(0xffffffffu, u[PX - 1], 1);
+        float vl = __shfl_up_sync(0xffffffffu, v[PX - 1], 1);
+        if (lane == 0) {
+          ul = to_f32(r0[-1]);
+          vl = to_f32(r0[SR - 1]);
+        }
+        const float* wc = wk + 4 * c * cpb;
+        k2_tap<T, CO, PX, true>(acc, wc, ul, u);
+        k2_tap<T, CO, PX, false>(acc, wc + cpb, 0.f, u);
+        k2_tap<T, CO, PX, true>(acc, wc + 2 * cpb, vl, v);
+        k2_tap<T, CO, PX, false>(acc, wc + 3 * cpb, 0.f, v);
+      }
+    }
+    if (k == nch - 1 && busy) {
+      int b, y, x0;
+      item_of(s, b, y, x0);
+      const int q = x0 + pix;
+      if (q < a.W)
+        store_1x1<T, CO, PX>(a, acc, b_s + g * CO, b, hw,
+                             (long long)y * a.W + q, min(PX, a.W - q), cg,
+                             vec);
+    }
+  }
+}
+
+template <typename T, int CO, int PX>
+int launch_k2(const ConvArgs& a, const PlanK2& p, cudaStream_t s) {
+  const auto kern = conv_k2_kernel<T, CO, PX>;
+  int rc = set_smem(kern, p.smem);
+  if (rc) return rc;
+  const int S = p.np * k2Lanes * PX, nt = k2Lanes * p.ng * p.np;
+  const long long items = (long long)a.B * a.H * ((a.W + S - 1) / S);
+  const int gx = resident_blocks(kern, nt, p.smem, items, p.groups);
+  if (gx < 1) return (int)cudaErrorInvalidValue;
+  kern<<<dim3(gx, p.groups), nt, p.smem, s>>>(a, p);
+  return (int)cudaGetLastError();
+}
+
+// A plan this source has a layout for, or cudaErrorInvalidValue.
+template <typename T>
+int run_k2(const ConvArgs& a, const PlanK2& p, cudaStream_t s) {
+  const int cpb = p.ng * p.co;
+  const bool ok =
+      p.ng >= 1 && p.np >= 1 && p.ng * p.np <= k2MaxWarps && p.kc >= 1 &&
+      p.kc <= a.C && p.groups >= 1 && p.groups * cpb >= a.Cout &&
+      (p.groups - 1) * cpb < a.Cout &&
+      p.smem == conv_k2_smem(a.C, p, (int)sizeof(T)) &&
+      (!p.vec || (a.W % (p.px > 8 ? p.px : 8) == 0 && aligned16(a.x) &&
+                  aligned16(a.out) && (!a.add || aligned16(a.add))));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  switch (p.co * 100 + p.px) {
+    case 808: return launch_k2<T, 8, 8>(a, p, s);
+    case 1604: return launch_k2<T, 16, 4>(a, p, s);
+    case 416: return launch_k2<T, 4, 16>(a, p, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
 int run(const ConvArgs& a, int k, int depthwise, const Plan1x1& p,
-        cudaStream_t s) {
+        const PlanK2& p2, cudaStream_t s) {
   switch (k) {
     case 1: return depthwise ? run_depthwise<T, 1>(a, s) : run_1x1<T>(a, p, s);
-    case 2: return depthwise ? run_depthwise<T, 2>(a, s) : run_dense<T, 2>(a, s);
+    case 2:
+      if (depthwise) return run_depthwise<T, 2>(a, s);
+      return a.dil == 1 ? run_k2<T>(a, p2, s) : run_dense<T, 2>(a, s);
     case 3: return depthwise ? run_depthwise<T, 3>(a, s) : run_dense<T, 3>(a, s);
     case 5: return depthwise ? run_depthwise<T, 5>(a, s) : run_dense<T, 5>(a, s);
   }
@@ -420,7 +657,9 @@ int run(const ConvArgs& a, int k, int depthwise, const Plan1x1& p,
 // w: dense OIHW [Cout, C, k, k] in x's dtype, or depthwise [C, 1, k, k]
 // f32; bias f32 [Cout]; add (x's dtype) and vec (f32 [B, Cout]) may be null.
 // plan: for k = 1 dense, the 7 ints (co, px, ng, kc, groups, smem, vec) of
-// conv1x1_plan and the vector path; ignored (may be null) otherwise.
+// conv1x1_plan and the vector path; for k = 2 dense at dilation 1, the 8
+// ints (co, px, ng, np, kc, groups, smem, vec) of stem_plan and the vector
+// path; ignored (may be null) otherwise.
 extern "C" int segtpu_conv_chw(const void* x, const void* w, const float* bias,
                                const void* add, const float* vec, void* out,
                                int B, int C, int Cout, int H, int W, int k,
@@ -428,11 +667,17 @@ extern "C" int segtpu_conv_chw(const void* x, const void* w, const float* bias,
                                const int* plan, void* stream) {
   ConvArgs a{x, w, bias, add, vec, out, B, C, Cout, H, W, dilation, act, 0, 1};
   Plan1x1 p{};
+  PlanK2 p2{};
   if (k == 1 && !depthwise) {
     if (!plan) return (int)cudaErrorInvalidValue;
     p = Plan1x1{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6]};
   }
+  if (k == 2 && !depthwise && dilation == 1) {
+    if (!plan) return (int)cudaErrorInvalidValue;
+    p2 = PlanK2{plan[0], plan[1], plan[2], plan[3],
+                plan[4], plan[5], plan[6], plan[7]};
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? run<__nv_bfloat16>(a, k, depthwise, p, s)
-              : run<float>(a, k, depthwise, p, s);
+  return bf16 ? run<__nv_bfloat16>(a, k, depthwise, p, p2, s)
+              : run<float>(a, k, depthwise, p, p2, s);
 }

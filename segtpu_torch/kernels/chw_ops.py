@@ -253,7 +253,8 @@ def _plan_ints(args: tuple):
 
 def _conv_launch(x, w, bias, acc, vec_acc, k, dilation, depthwise, act):
     """The kernel on checked operands (csrc/conv_chw.cu; k = 1 dense takes
-    conv1x1_kernel with the plan of ``conv1x1_args``)."""
+    conv1x1_kernel with the plan of ``conv1x1_args``, k = 2 dense at
+    dilation 1 conv_k2_kernel with the plan of ``stem_args``)."""
     b, c, h, wd, cout = _conv_geometry(x, w, bias, acc, vec_acc, k,
                                        dilation, depthwise, act)
     if not x.is_contiguous():
@@ -268,10 +269,12 @@ def _conv_launch(x, w, bias, acc, vec_acc, k, dilation, depthwise, act):
         raise ValueError(f"acc on {acc.device}, x on {dev}")
     out = torch.empty((b, cout, h, wd), dtype=x.dtype, device=dev)
     plan = None
+    ptrs = [t.data_ptr() for t in (x, acc, out) if t is not None]
     if k == 1 and not depthwise:
-        plan = _plan_ints(conv1x1_args(
-            c, cout, h * wd, x.element_size(),
-            [t.data_ptr() for t in (x, acc, out) if t is not None]))
+        plan = _plan_ints(conv1x1_args(c, cout, h * wd, x.element_size(),
+                                       ptrs))
+    elif k == 2 and not depthwise and dilation == 1:
+        plan = _plan_ints(stem_args(c, cout, wd, x.element_size(), ptrs))
     fn = _conv_entry()
     rc = _launch(fn, x, x.data_ptr(), wk.data_ptr(), bk.data_ptr(),
                  acc.data_ptr() if acc is not None else None,
@@ -378,6 +381,83 @@ def conv1x1_args(cin: int, cout: int, hw: int, esize: int, ptrs) -> tuple:
     p = _conv1x1_plan(cin, cout, esize)
     return (p.co, p.px, p.ng, p.kc, p.groups, p.smem,
             int(vector_ok(ptrs, hw) and hw % p.px == 0))
+
+
+# A dense k = 2 conv_chw launch at dilation 1, the stem (csrc/conv_chw.cu
+# conv_k2_kernel): one warp per group of CO output channels and part of a
+# row segment, each thread CO channels x PX pixels of one output row, input
+# rows y - 1 and y staged through a ring of four chunks.
+_K2_LANES = 32
+_K2_STAGES = 4
+_K2_MAX_WARPS = 8
+# the thread tiles (CO, PX) conv_k2_kernel instantiates; the plan's is the
+# first, the fastest at the stem's b8 launch on an H100
+# (``stem_tail_probe.py --tiles`` times them all)
+STEM_TILES = ((8, 8), (16, 4), (4, 16))
+
+
+class StemPlan(NamedTuple):
+    co: int          # output channels a thread accumulates (CO)
+    px: int          # consecutive pixels a thread accumulates (PX)
+    ng: int          # channel groups
+    np: int          # parts of a row segment (S = np * 32 * px pixels)
+    kc: int          # input channels of a staged chunk
+    groups: int      # blocks along Cout, ng * co channels each
+    smem: int        # shared bytes
+
+
+def stem_row(px: int, np_: int, esize: int) -> int:
+    """Elements of a staged input row (csrc/conv_chw.cu ``k2_row``): one
+    16-byte chunk of left halo, then the segment of np * 32 * px."""
+    return 16 // esize + np_ * _K2_LANES * px
+
+
+def stem_smem(cin: int, co: int, px: int, ng: int, np_: int, kc: int,
+              esize: int) -> int:
+    """Shared bytes of a k = 2 block (csrc/conv_chw.cu ``conv_k2_smem``):
+    the f32 weights [cin][4][ng * co] and bias [ng * co], then four input
+    chunks [kc][2 rows][stem_row] of ``esize``-byte elements."""
+    return (4 * (4 * cin + 1) * ng * co
+            + _K2_STAGES * kc * 2 * stem_row(px, np_, esize) * esize)
+
+
+def stem_plan(cin: int, cout: int, width: int, esize: int,
+              tile=STEM_TILES[0]) -> StemPlan:
+    """The layout of a dense k = 2 launch at dilation 1 on rows of
+    ``width`` pixels: the thread tile ``tile`` (CO, PX), up to 8 warps a
+    block, split between channel groups (as few blocks along Cout as
+    fit) and parts of a row segment (as many as the width takes). The
+    largest chunk of input channels whose shared memory leaves room for
+    two blocks per SM, else one. The sum order does not depend on the
+    plan."""
+    co, px = tile
+    for limit in (_TWO_BLOCKS, _SMEM_LIMIT):
+        for groups in range(_cdiv(cout, _K2_MAX_WARPS * co), cout + 1):
+            ng = _cdiv(_cdiv(cout, groups), co)
+            np_ = max(1, min(_K2_MAX_WARPS // ng,
+                             _cdiv(width, _K2_LANES * px)))
+            fixed = stem_smem(cin, co, px, ng, np_, 0, esize)
+            per_kc = stem_smem(cin, co, px, ng, np_, 1, esize) - fixed
+            kc = min(cin, (limit - fixed) // per_kc)
+            if kc >= 1:
+                return StemPlan(co, px, ng, np_, kc, _cdiv(cout, ng * co),
+                                stem_smem(cin, co, px, ng, np_, kc, esize))
+    raise ValueError(f"conv_chw k=2: {cin} -> {cout} channels do not fit "
+                     f"shared memory")
+
+
+_stem_plan = functools.lru_cache(maxsize=None)(stem_plan)
+
+
+def stem_args(cin: int, cout: int, width: int, esize: int, ptrs,
+              tile=STEM_TILES[0]) -> tuple:
+    """The 8 ints the C entry takes for a dense k = 2 call at dilation 1:
+    the plan's (co, px, ng, np, kc, groups, smem) for ``tile`` and the
+    vector path (1 when rows of ``width`` pixels and the pointers of x,
+    acc and out allow 16-byte loads and stores of a thread's pixels)."""
+    p = _stem_plan(cin, cout, width, esize, tile)
+    return tuple(p) + (int(vector_ok(ptrs, width)
+                           and width % max(8, p.px) == 0),)
 
 
 # ------------------------------------------------------ inverted residuals

@@ -29,11 +29,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from segtpu_torch.core.resize import _interp_matrix
+from segtpu_torch.kernels.chw_ops import _plan_ints
 
 
 def matrix_taps(mat: np.ndarray):
@@ -130,6 +132,142 @@ def _device_tables(h: int, w: int, grid_h: int, grid_w: int, ho: int, wo: int,
     return tuple(torch.from_numpy(t).to(device) for t in (rows, rw, cols, cw))
 
 
+# The tail kernel's layout (csrc/upsample_argmax.cu upsample_argmax_kernel):
+# a block takes bands of BR output rows x segments of SW output columns;
+# each thread 8 consecutive columns of one row, a half-warp 128 columns;
+# at most 256 threads.
+_SMEM_LIMIT = 227 * 1024           # opt-in shared memory per block, H100
+_THREE_BLOCKS = 228 * 1024 // 3 - 1024   # shared memory for three blocks
+# the (BR, SW) tiles the plan may take; the plan's is the first, the
+# fastest at the arch0 b8 path's tail on an H100 (``stem_tail_probe.py
+# --tiles`` times them all)
+TAIL_TILES = ((4, 256), (8, 256), (2, 256), (8, 128))
+
+
+class TailPlan(NamedTuple):
+    br: int          # output rows of a band
+    sw: int          # output columns of a segment
+    nr: int          # input rows staged: the most any band's taps name
+    nc: int          # input columns staged (a multiple of 8)
+    kc: int          # classes a staged chunk
+    smem: int        # shared bytes
+
+
+def tail_span(taps: np.ndarray, size: int, align: int = 1) -> int:
+    """The most input rows (or columns) a block of ``size`` consecutive
+    outputs names: from the first output's low tap (aligned down to a
+    multiple of ``align``) to the largest tap of the block, which the
+    kernel stages. Raises where a block's taps reach below its first
+    output's low tap (tables that are not monotone)."""
+    n = taps.shape[1]
+    starts = np.arange(0, n, size)
+    lo = taps[0, starts] // align * align
+    blk = np.arange(n) // size
+    if (taps.min(axis=0) < lo[blk]).any():
+        raise ValueError("tail taps are not monotone")
+    hi = np.maximum.reduceat(taps.max(axis=0), starts)
+    return int((hi - lo).max()) + 1
+
+
+def tail_smem(br: int, nr: int, nc: int, kc: int, esize: int) -> int:
+    """Shared bytes of a tail block (csrc/upsample_argmax.cu
+    ``tail_smem``): two buffers of staged logits [kc][nr][nc] in
+    ``esize``-byte elements (each rounded up to 16 bytes), then the f32
+    H pass [kc][br][nc + 1]."""
+    return 2 * (-(-kc * nr * nc * esize // 16) * 16) + 4 * kc * br * (nc + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def tail_plan(h: int, w: int, grid_h: int, grid_w: int, ho: int, wo: int,
+              align_corners: bool, k: int, esize: int,
+              tile=TAIL_TILES[0]) -> TailPlan:
+    """The layout of a tail launch from [., k, h, w] logits to the
+    (ho, wo) crop of the (grid_h, grid_w) grid: bands of ``tile`` = (BR,
+    SW), the input rows and columns any band and segment names (from the
+    tap tables), and the most classes a chunk whose shared memory leaves
+    room for three blocks per SM, else one. The arithmetic does not
+    depend on the plan."""
+    br, sw = tile
+    rows, _ = interp_taps(h, grid_h, align_corners, ho, False)
+    cols, _ = interp_taps(w, grid_w, align_corners, wo, False)
+    nr = tail_span(rows, br)
+    nc = -(-tail_span(cols, sw, 8) // 8) * 8
+    per_class = tail_smem(br, nr, nc, 1, esize)   # nc % 8 == 0: linear in kc
+    for limit in (_THREE_BLOCKS, _SMEM_LIMIT):
+        kc = min(k, limit // per_class)
+        if kc >= 1:
+            return TailPlan(br, sw, nr, nc, kc, kc * per_class)
+    raise ValueError(f"tail of {k} classes {h}x{w} -> {ho}x{wo}: one class "
+                     f"of a {br}x{sw} band does not fit shared memory")
+
+
+def tail_args(plan: TailPlan, w: int, wo: int, esize: int, in_ptr: int,
+              out_ptr: int) -> tuple:
+    """The 8 ints the C entry takes: the plan and the vector paths (vin:
+    16-byte loads where logit rows are whole 16-byte chunks and the
+    logits 16-byte aligned; vout: 8-byte mask stores where ``wo`` is a
+    multiple of 8 and the mask 8-byte aligned)."""
+    vin = w % (16 // esize) == 0 and in_ptr % 16 == 0
+    vout = wo % 8 == 0 and out_ptr % 8 == 0
+    return tuple(plan) + (int(vin), int(vout))
+
+
+def _entry(name: str, n_ints: int, plan: bool = False):
+    """The C entry ``name`` of csrc/upsample_argmax.cu with its argtypes:
+    logits and mask pointers, ``n_ints`` ints, the four tables, the plan
+    when it takes one, the stream."""
+    from segtpu_torch.kernels._build import load
+    fn = getattr(load("upsample_argmax"), name)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * n_ints \
+        + [ctypes.c_void_p] * (6 if plan else 5)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _tail_entry():
+    return _entry("segtpu_upsample_argmax", 7, plan=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _sharded_entry():
+    return _entry("segtpu_upsample_argmax_sharded", 10)
+
+
+@functools.lru_cache(maxsize=None)
+def _flat_entry():
+    return _entry("segtpu_upsample_argmax_flat", 7)
+
+
+def _tail_launch(logits, out_hw, crop_hw, align_corners):
+    """The kernel on checked, contiguous CUDA logits (csrc/
+    upsample_argmax.cu upsample_argmax_kernel, with the plan of
+    ``tail_plan``)."""
+    ho, wo, *_ = _tables(logits, out_hw, crop_hw, align_corners)
+    if not logits.is_contiguous():
+        raise ValueError("tail kernel needs contiguous logits")
+    b, k, h, w = logits.shape
+    bf16 = logits.dtype == torch.bfloat16
+    grid_h, grid_w = int(out_hw[0]), int(out_hw[1])
+    rows, rw, cols, cw = _device_tables(h, w, grid_h, grid_w, ho, wo,
+                                        align_corners, bf16, logits.device)
+    esize = logits.element_size()
+    out = torch.empty((b, ho, wo), dtype=torch.uint8, device=logits.device)
+    plan = _plan_ints(tail_args(
+        tail_plan(h, w, grid_h, grid_w, ho, wo, align_corners, k, esize),
+        w, wo, esize, logits.data_ptr(), out.data_ptr()))
+    with torch.cuda.device(logits.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _tail_entry()(logits.data_ptr(), out.data_ptr(), b, k, h, w, ho,
+                           wo, int(bf16), rows.data_ptr(), rw.data_ptr(),
+                           cols.data_ptr(), cw.data_ptr(),
+                           ctypes.addressof(plan), stream)
+    if rc != 0:
+        raise RuntimeError(f"upsample_argmax kernel launch failed: CUDA "
+                           f"error {rc}")
+    return out
+
+
 def upsample_argmax(logits, out_hw, *, crop_hw=None,
                     align_corners: bool = True, use_kernels: bool = True):
     """[B, K, h, w] logits -> uint8 mask [B, Ho, Wo] (see module doc).
@@ -143,28 +281,7 @@ def upsample_argmax(logits, out_hw, *, crop_hw=None,
                                      align_corners=align_corners)
     if logits.device.type != "cuda":
         raise ValueError(f"tail runs on cuda or cpu, not {logits.device}")
-    ho, wo, *_ = _tables(logits, out_hw, crop_hw, align_corners)
-    if not logits.is_contiguous():
-        raise ValueError("tail kernel needs contiguous logits")
-    b, k, h, w = logits.shape
-    bf16 = logits.dtype == torch.bfloat16
-    rows, rw, cols, cw = _device_tables(h, w, int(out_hw[0]), int(out_hw[1]),
-                                        ho, wo, align_corners, bf16,
-                                        logits.device)
-    from segtpu_torch.kernels._build import load
-    fn = load("upsample_argmax").segtpu_upsample_argmax
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p] * 5
-    fn.restype = ctypes.c_int
-    out = torch.empty((b, ho, wo), dtype=torch.uint8, device=logits.device)
-    with torch.cuda.device(logits.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(logits.data_ptr(), out.data_ptr(), b, k, h, w, ho, wo,
-                int(bf16), rows.data_ptr(), rw.data_ptr(), cols.data_ptr(),
-                cw.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"upsample_argmax kernel launch failed: CUDA "
-                           f"error {rc}")
+    out = _tail_launch(logits, out_hw, crop_hw, align_corners)
     upsample_argmax.launches += 1
     return out
 
@@ -257,15 +374,10 @@ def upsample_argmax_sharded(logits_ext, out_hw, *, shard: int, n_shards: int,
     # the whole frame's tables, shared by the shards of one device
     rows, rw, cols, cw = _device_tables(h, w, grid_h, grid_w, grid_h, grid_w,
                                         align_corners, bf16, dev)
-    from segtpu_torch.kernels._build import load
-    fn = load("upsample_argmax").segtpu_upsample_argmax_sharded
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 10 + [
-        ctypes.c_void_p] * 5
-    fn.restype = ctypes.c_int
     out = torch.empty((b, rows_out, grid_w), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(logits_ext.data_ptr(), out.data_ptr(), b, k, hwin, w, rows_out,
+        rc = _sharded_entry()(logits_ext.data_ptr(), out.data_ptr(), b, k, hwin, w, rows_out,
                 grid_w, grid_h, in_row0, out_row0, int(bf16), rows.data_ptr(),
                 rw.data_ptr(), cols.data_ptr(), cw.data_ptr(), stream)
     if rc != 0:
@@ -343,15 +455,10 @@ def upsample_argmax_flat(logits_flat, in_hw, out_hw, *, crop_hw=None,
     b, k, h, w = logits.shape
     bf16 = logits.dtype == torch.bfloat16
     dev = logits.device
-    from segtpu_torch.kernels._build import load
-    fn = load("upsample_argmax").segtpu_upsample_argmax_flat
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p] * 5
-    fn.restype = ctypes.c_int
     out = torch.empty((b, ho, wo), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(logits.data_ptr(), out.data_ptr(), b, k, h, w, ho, wo,
+        rc = _flat_entry()(logits.data_ptr(), out.data_ptr(), b, k, h, w, ho, wo,
                 int(bf16), rows.data_ptr(), rw.data_ptr(), cols.data_ptr(),
                 cw.data_ptr(), stream)
     if rc != 0:
