@@ -21,26 +21,27 @@ Phases, each a hard failure (non-zero exit) when it fails:
    seeded b8 frames: each of the 18 launches of the main path (stem
    conv_chw, 13 inv_res_chw, 4 inv_res_s2_chw, every served bf16 block
    on the CUDA cores, whose sums give the twins' bits) against its plain
-   twin on the same input, bf16: the stem bit for bit, each block >= 99 %
-   of output elements bit-identical and the worst error <= 1e-2 of
-   max(|ref|, 1). Each block
+   twin on the same input, bf16, bit for bit. Each block
    is also run on the tensor-core kernel (inv_res_tc_chw, which no
-   serving path calls) and held to its twin at the same tolerance, which
-   that kernel's own f32 sum order needs. The served kernel's output
-   feeds the next stage. Then every stage in f32 at 2x128x256 (the stem
-   bit for bit, the blocks at rtol = atol = 1e-4), and conv_chw's other
-   forms (k = 1 and 2 bit for bit; the stem's and the tail's forms of
-   stem_tail_probe.forms and the stem on a shard's window of rows, whose
-   rows must equal the whole input's, bit for bit) and odd-sized blocks
-   at small shapes, f32 and bf16 (bf16 on both kernels; Cin 24, and a
-   stride-2
-   block on a shard's rows with its 2-row halo, whose rows must equal the
-   whole input's). Each launch is timed in turns with, for a block, the
-   tensor-core kernel, and a cuDNN yardstick (F.conv2d with the folded
+   serving path calls) and held to its twin at >= 99 % of output elements
+   bit-identical and a worst error <= 1e-2 of max(|ref|, 1), which that
+   kernel's own f32 sum order needs. The served kernel's output feeds the
+   next stage. Then every stage in f32 at 2x128x256, bit for bit, and
+   conv_chw's other forms (k = 1 and 2 bit for bit; the stem's and the
+   tail's forms of stem_tail_probe.forms and the stem on a shard's window
+   of rows, whose rows must equal the whole input's, bit for bit) and
+   odd-sized blocks at small shapes, f32 and bf16 (inv_res_forms: the
+   CUDA-core kernel bit for bit, the tensor-core one at the tolerance
+   above; Cin 24, and a stride-2 block on a shard's rows with its 2-row
+   halo, whose rows must equal the whole input's). Each launch is timed
+   in turns with, for a block, the tensor-core kernel, and a cuDNN
+   yardstick (F.conv2d with the folded
    weights: one call for the stem, the three-call expand/dw/project
    sequence for a block, without the activations and residual, since no
    one call computes a block), each over a ~25 ms window, and once with
-   its plain twin.
+   its plain twin. Each block's line prints its bound and its f32 FMA
+   floor (the products as f32 multiply-adds at the measured 59.5
+   TFLOP/s) without and with the expand's halo at the plan's tiles.
 5. decoder: the folded arch0 decoder on the kernels' taps of seeded b8
    1024x2048 frames, every kernel call recorded and replayed against its
    plain twin (conv_chw's k = 1 calls and resize_chw's bit for bit, each
@@ -139,17 +140,19 @@ last, {"ok": true, "device": {...}}. Writes chiprun_out/chip_smoke.json.
 --control BITS runs a control instead of the phases: the bf16
 tensor-core node, 1x1 and inverted-residual kernels' outputs (cell.cu's
 node_tc_kernel, pointwise.cu's pw_tc_kernel, inv_res.cu's
-inv_res_tc_kernel), and conv_chw's k = 1 and k = 2 (the stem) and
-resize_chw's outputs (bf16 and f32), rounded once more, to BITS
+inv_res_tc_kernel), and conv_chw's k = 1 and k = 2 (the stem),
+resize_chw's and the served inverted residual's (inv_res.cu's
+inv_res_kernel) outputs (bf16 and f32), rounded once more, to BITS
 significant bits, and the tail kernel's input likewise, and the checks
-that hold those kernels at a tolerance (phase 4's 17 block stages, phase
-5's calls, encoder taps and f32 reference, phase 6's arch0 and G2 masks,
-phase 8's shard logits) or bit for bit (conv_chw k = 1 and resize_chw at
-every launch of phase 5's main, G2 and f32 paths, the forms, and phase
-8's sharded decoder; the stem at phase 4's b8 and f32 launches, its
-forms and window, phase 8's four shard launches; the tail's phase 3
-cases and forms, and phase 8's unsharded rows) run on it. It exits 0
-when every one of them fails.
+that hold those kernels at a tolerance (phase 4's 17 tensor-core block
+stages, phase 5's calls, encoder taps and f32 reference, phase 6's arch0
+and G2 masks, phase 8's shard logits) or bit for bit (conv_chw k = 1 and
+resize_chw at every launch of phase 5's main, G2 and f32 paths, the
+forms, and phase 8's sharded decoder; the stem and the 17 served blocks
+at phase 4's b8 and f32 launches, their forms and windows, phase 8's four
+shard stems; the tail's phase 3 cases and forms, and phase 8's unsharded
+rows) run on it. It prints how many fail and exits 0 when every one of
+them fails.
 """
 
 from __future__ import annotations
@@ -429,6 +432,21 @@ def bound_ms(nbytes, dot, f32):
     return times[by], by
 
 
+def block_floor_ms(blk, x):
+    """(f32 FMA floor ms with the expand's halo, the plan): a folded
+    block's products on x as f32 multiply-adds at the measured rate, the
+    expand over every tile's whole window at the plan ``inv_res_plan``
+    gives the launch."""
+    from segtpu_torch.kernels.chw_ops import _sm_count, inv_res_plan
+    from segtpu_torch.kernels.inv_res_sweep import fma_floor_ms
+    b, cin, h, w = x.shape
+    cmid, cout, st = blk.w_dw.shape[0], blk.w_proj.shape[0], blk.stride
+    expand = blk.w_exp is not None
+    plan = inv_res_plan(cin, cmid, cout, h // st, w // st, st, x.dtype, b,
+                        expand, sm_count=_sm_count(x.device))
+    return fma_floor_ms(cin, cmid, cout, st, b, h, w, expand, plan), plan
+
+
 def phase_encoder(torch, img):
     """Phase 4 (see the module doc). Returns per-kernel sums over the
     main path's launches (worst abs error, kernel/plain/library ms and,
@@ -453,9 +471,8 @@ def phase_encoder(torch, img):
             want = fn(y, False)
             torch.cuda.synchronize()
             r = res[name]
-            held = _exact if name == "conv_chw" else _compare   # the stem
             r["max_abs_err"] = max(r["max_abs_err"],
-                                   held(torch, got, want, what))
+                                   _exact(torch, got, want, what))
             arms = {"ms": lambda: fn(y, True), "lib": lambda: lib(y)}
             if tc is not None:
                 # the tensor-core kernel, which no serving path calls
@@ -468,15 +485,20 @@ def phase_encoder(torch, img):
             plain_ms = cuda_ms(lambda: fn(y, False), 1, warmup=1)
             nbytes, dot, f32 = work(y)
             bms, by = bound_ms(nbytes, dot, f32)
+            floor = dot / F32_FMA_MEASURED_FLOP_PER_S * 1e3
+            halo = None if tc is None else block_floor_ms(fn, y)
             print(f"[timing] {what}: {ms:.4f} ms"
                   + (f" (CUDA cores; tensor cores {t['tc']:.4f} ms)"
                      if tc else "")
                   + f", plain {plain_ms:.4f} ms, cuDNN yardstick "
-                  f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})"
-                  + ("" if tc else f", f32 FMA floor "
-                     f"{dot / F32_FMA_MEASURED_FLOP_PER_S * 1e3:.4f} ms"))
+                  f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), f32 FMA "
+                  f"floor {floor:.4f} ms"
+                  + ("" if halo is None else
+                     f" ({halo[0]:.4f} ms with the halo at plan "
+                     f"{tuple(halo[1])})"))
             stage_ms.append((name, list(y.shape), ms, plain_ms, lib_ms,
-                             t.get("tc"), bms))
+                             t.get("tc"), bms, floor,
+                             None if halo is None else halo[0]))
             for key, v in (("ms", ms), ("plain_ms", plain_ms),
                            ("library_ms", lib_ms), ("tc_ms", t.get("tc")),
                            ("bytes", nbytes), ("dot", dot), ("f32", f32),
@@ -493,8 +515,7 @@ def phase_encoder(torch, img):
                                 out_dtype=torch.float32)
         for i, (name, fn, *_) in enumerate(encoder_stages(enc32)):
             got = fn(y, True)
-            (_exact if name == "conv_chw" else _compare)(
-                torch, got, fn(y, False), f"f32 stage {i:2d} {name}")
+            _exact(torch, got, fn(y, False), f"f32 stage {i:2d} {name}")
             y = got
         phase_kernel_forms(torch)
     return res, stage_ms
@@ -537,19 +558,91 @@ def stem_window_checks(torch):
     return out
 
 
-def phase_kernel_forms(torch):
-    """conv_chw's decoder forms and inverted residuals at odd sizes
-    (tiles cut by the image edge), small shapes, f32 and bf16."""
-    from segtpu_torch.kernels.chw_ops import (conv_chw, inv_res_chw,
-                                              inv_res_s2_chw, inv_res_tc_chw)
+def inv_res_forms(torch, tensor_cores=True):
+    """[(what, check())]: odd-sized inverted residuals (tiles cut by the
+    image edge, Cin 24, no expand, stride 2) at small shapes, f32 and
+    bf16 on the served CUDA-core kernel, bit for bit its twin, and, with
+    ``tensor_cores``, bf16 on the tensor-core kernel at its tolerance;
+    then a stride-2 block on a shard's rows as mbv2_chw_sharded feeds it
+    (rows 14..35 of a 36-row input: 2 halo rows above), whose output rows
+    but the first must be the whole input's rows 8..17, bit for bit."""
+    from segtpu_torch.kernels.chw_ops import (inv_res_chw, inv_res_s2_chw,
+                                              inv_res_tc_chw)
     g = torch.Generator(device="cuda").manual_seed(4)
 
-    def block(x, *ws, stride, residual=False, tc=False):
+    def block(x, *ws, stride, residual=False, tc=False, use_kernels=True):
         if tc:
             return inv_res_tc_chw(x, *ws, stride=stride, residual=residual)
         if stride == 2:
-            return inv_res_s2_chw(x, *ws)
-        return inv_res_chw(x, *ws, residual=residual)
+            return inv_res_s2_chw(x, *ws, use_kernels=use_kernels)
+        return inv_res_chw(x, *ws, residual=residual,
+                           use_kernels=use_kernels)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    kernels = ((torch.float32, False), (torch.bfloat16, False))
+    if tensor_cores:
+        kernels += ((torch.bfloat16, True),)
+    out = []
+    block_cases = [  # stride, cin, t, cout, residual, h, w
+        (1, 16, 6, 24, False, 13, 21),
+        (1, 32, 6, 32, True, 9, 11),
+        (1, 32, 1, 16, False, 17, 30),
+        (2, 32, 1, 16, False, 14, 22),
+        (2, 96, 6, 160, False, 10, 6),
+        (1, 160, 6, 320, False, 3, 5),
+        (1, 24, 6, 24, True, 13, 21),      # Cin 24: K padded to 32
+    ]
+    for stride, cin, t, cout, residual, h, w in block_cases:
+        cmid = cin * t
+        wts = ((rnd(cmid, cin, 1, 1, scale=0.2), rnd(cmid, scale=0.1))
+               if t != 1 else (None, None)) + (
+            rnd(cmid, 1, 3, 3, scale=0.3), rnd(cmid, scale=0.1),
+            rnd(cout, cmid, 1, 1, scale=0.1), rnd(cout, scale=0.1))
+        x = rnd(2, cin, h, w)
+        for dt, tc in kernels:
+            ws = tuple(None if v is None else
+                       (v.to(dt) if j in (0, 4) else v)
+                       for j, v in enumerate(wts))
+            what = (f"inv_res s{stride} {cin}x{t}->{cout} res={residual} "
+                    f"{h}x{w} {dt}" + (" tensor cores" if tc else
+                                       " CUDA cores"))
+
+            def run(x=x.to(dt), ws=ws, stride=stride, residual=residual,
+                    tc=tc, what=what):
+                got = block(x, *ws, stride=stride, residual=residual, tc=tc)
+                want = block(x, *ws, stride=stride, residual=residual,
+                             use_kernels=False)
+                (_compare if tc else _exact)(torch, got, want, what)
+            out.append((what, run))
+    wts = (rnd(192, 32, 1, 1, scale=0.2), rnd(192, scale=0.1),
+           rnd(192, 1, 3, 3, scale=0.3), rnd(192, scale=0.1),
+           rnd(64, 192, 1, 1, scale=0.1), rnd(64, scale=0.1))
+    x = rnd(2, 32, 36, 32)
+    for dt, tc in kernels:
+        ws = tuple(v.to(dt) if j in (0, 4) else v for j, v in enumerate(wts))
+        what = (f"inv_res s2 32x6->64 shard rows 14..35 {dt} "
+                + ("tensor cores" if tc else "CUDA cores"))
+
+        def run(x=x.to(dt), ws=ws, tc=tc, what=what):
+            whole = block(x, *ws, stride=2, tc=tc)
+            part = x[:, :, 14:].contiguous()
+            got = block(part, *ws, stride=2, tc=tc)
+            (_compare if tc else _exact)(
+                torch, got, inv_res_s2_chw(part, *ws, use_kernels=False),
+                what)
+            check(torch.equal(got[:, :, 1:], whole[:, :, 8:]),
+                  f"{what}: rows differ from the whole input's rows")
+        out.append((what, run))
+    return out
+
+
+def phase_kernel_forms(torch):
+    """conv_chw's decoder forms and inverted residuals at odd sizes
+    (tiles cut by the image edge), small shapes, f32 and bf16."""
+    from segtpu_torch.kernels.chw_ops import conv_chw
+    g = torch.Generator(device="cuda").manual_seed(4)
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device="cuda") * scale
@@ -580,60 +673,12 @@ def phase_kernel_forms(torch):
                      conv_chw(*args, **kw, use_kernels=False),
                      f"conv_chw k={k} dil={dil} dw={dw} {act} acc={use_acc} "
                      f"vec={use_vec} {dt}")
-    block_cases = [  # stride, cin, t, cout, residual, h, w
-        (1, 16, 6, 24, False, 13, 21),
-        (1, 32, 6, 32, True, 9, 11),
-        (1, 32, 1, 16, False, 17, 30),
-        (2, 32, 1, 16, False, 14, 22),
-        (2, 96, 6, 160, False, 10, 6),
-        (1, 160, 6, 320, False, 3, 5),
-        (1, 24, 6, 24, True, 13, 21),      # Cin 24: K padded to 32
-    ]
     for what, fn in stem_tail_forms(torch):
         _exact(torch, fn(True), fn(False), what)
     for what, fn in stem_window_checks(torch):
         fn()
-    for stride, cin, t, cout, residual, h, w in block_cases:
-        cmid = cin * t
-        wts = ((rnd(cmid, cin, 1, 1, scale=0.2), rnd(cmid, scale=0.1))
-               if t != 1 else (None, None)) + (
-            rnd(cmid, 1, 3, 3, scale=0.3), rnd(cmid, scale=0.1),
-            rnd(cout, cmid, 1, 1, scale=0.1), rnd(cout, scale=0.1))
-        x = rnd(2, cin, h, w)
-        # f32 on the CUDA cores; bf16 on each kernel
-        for dt, tc in ((torch.float32, False), (torch.bfloat16, True),
-                       (torch.bfloat16, False)):
-            ws = tuple(None if v is None else
-                       (v.to(dt) if j in (0, 4) else v)
-                       for j, v in enumerate(wts))
-            got = block(x.to(dt), *ws, stride=stride, residual=residual,
-                        tc=tc)
-            want = (inv_res_s2_chw(x.to(dt), *ws, use_kernels=False)
-                    if stride == 2 else
-                    inv_res_chw(x.to(dt), *ws, residual=residual,
-                                use_kernels=False))
-            _compare(torch, got, want, f"inv_res s{stride} {cin}x{t}->{cout} "
-                     f"res={residual} {h}x{w} {dt}"
-                     + (" tensor cores" if tc else " CUDA cores"))
-    # a stride-2 block on a shard's rows as mbv2_chw_sharded feeds it: the
-    # rows 16..35 of a 36-row input with 2 halo rows above; its output
-    # rows but the first are the whole input's rows 8..17, bit for bit
-    wts = (rnd(192, 32, 1, 1, scale=0.2), rnd(192, scale=0.1),
-           rnd(192, 1, 3, 3, scale=0.3), rnd(192, scale=0.1),
-           rnd(64, 192, 1, 1, scale=0.1), rnd(64, scale=0.1))
-    x = rnd(2, 32, 36, 32)
-    for dt, tc in ((torch.float32, False), (torch.bfloat16, True),
-                   (torch.bfloat16, False)):
-        ws = tuple(v.to(dt) if j in (0, 4) else v for j, v in enumerate(wts))
-        whole = block(x.to(dt), *ws, stride=2, tc=tc)
-        part = x[:, :, 14:].to(dt).contiguous()
-        got = block(part, *ws, stride=2, tc=tc)
-        what = (f"inv_res s2 32x6->64 shard rows 14..35 {dt} "
-                + ("tensor cores" if tc else "CUDA cores"))
-        _compare(torch, got, inv_res_s2_chw(part, *ws, use_kernels=False),
-                 what)
-        check(torch.equal(got[:, :, 1:], whole[:, :, 8:]),
-              f"{what}: rows differ from the whole input's rows")
+    for what, run in inv_res_forms(torch):
+        run()
 
 
 DECODER_KERNELS = ("conv_chw", "pw_chain_chw", "pw_multi_chw",
@@ -1965,7 +2010,8 @@ def coarse_decoder(torch, bits: int):
     differ from their twins by one rounding on a few elements in a
     thousand. The bf16 node, 1x1 and inverted-residual kernels
     (``cell.cu``, ``pointwise.cu``, ``inv_res.cu``), conv_chw's k = 1 and
-    k = 2 (the stem's) dense kernels and resize_chw's kernel in bf16 and
+    k = 2 (the stem's) dense kernels, resize_chw's kernel and the served
+    inverted residual (``inv_res.cu``'s ``inv_res_kernel``) in bf16 and
     f32; and the tail kernel's input, a rounded copy of the logits, so
     that its masks are those of other logits."""
     import importlib
@@ -2006,6 +2052,7 @@ def coarse_decoder(torch, bits: int):
     patches = [(chw_ops, n, coarse) for n in
                ("_node_launch", "_pw_launch", "_inv_res_tc_launch")]
     patches += [(chw_ops, "_conv_launch", coarse_conv),
+                (chw_ops, "_inv_res_launch", coarse_resize),
                 (rz, "_resize_launch", coarse_resize),
                 (ua, "_tail_launch", coarse_tail)]
     saved = [(mod, n, getattr(mod, n)) for mod, n, _ in patches]
@@ -2047,9 +2094,10 @@ def must_fail(what, fn) -> bool:
 
 def phase_control(torch, bits: int) -> dict:
     """``--control BITS``: the checks that hold the bf16 tensor-core
-    kernels at a tolerance, and those that hold conv_chw's k = 1 and
-    resize_chw bit for bit, run with ``coarse_decoder(bits)``: each must
-    fail. Returns {check: failed}."""
+    kernels at a tolerance, and those that hold conv_chw's k = 1 and 2,
+    resize_chw, the tail and the served inverted residual bit for bit,
+    run with ``coarse_decoder(bits)``: each must fail. Returns {check:
+    failed}."""
     from segtpu_torch.engine import Segmenter, ShardedSegmenter
     from segtpu_torch.models import ARCHS
     from segtpu_torch.kernels.front import normalize_s2d_front
@@ -2067,22 +2115,27 @@ def phase_control(torch, bits: int) -> dict:
             for i, (name, fn, _, _, tc) in enumerate(encoder_stages(enc)):
                 if tc is not None:
                     res[f"stage {i:2d} {name} tensor cores vs its twin"] = \
-                        must_fail(f"stage {i:2d} {name}", lambda: _compare(
-                            torch, tc(y), fn(y, False), f"stage {i}"))
-                else:                                   # the stem
-                    res[f"stage {i:2d} {name} vs its twin"] = must_fail(
-                        f"stage {i:2d} {name}", lambda: _exact(
-                            torch, fn(y, True), fn(y, False), f"stage {i}"))
+                        must_fail(f"stage {i:2d} {name} tensor cores",
+                                  lambda: _compare(torch, tc(y), fn(y, False),
+                                                   f"stage {i}"))
+                res[f"stage {i:2d} {name} vs its twin"] = must_fail(
+                    f"stage {i:2d} {name}", lambda: _exact(
+                        torch, fn(y, True), fn(y, False), f"stage {i}"))
                 y = fn(y, True)
-            # the f32 stem, phase 4's forms of the stem and the tail, the
-            # stem on a shard's window, phase 3's tail cases
+            # the f32 stages, phase 4's inverted-residual forms (the served
+            # kernel's) and the stem's and the tail's, the stem on a shard's
+            # window, phase 3's tail cases
             enc32 = fold_encoder(make_model(torch).encoder,
                                  torch.float32).to("cuda")
             y = normalize_s2d_front(img[:2, :128, :256].contiguous(),
                                     out_dtype=torch.float32)
-            res["f32 stage  0 conv_chw vs its twin"] = must_fail(
-                "f32 stem", lambda: _exact(torch, enc32.stem(y),
-                                           enc32.stem(y, False), "f32 stem"))
+            for i, (name, fn, *_) in enumerate(encoder_stages(enc32)):
+                what = f"f32 stage {i:2d} {name}"
+                res[f"{what} vs its twin"] = must_fail(what, lambda: _exact(
+                    torch, fn(y, True), fn(y, False), what))
+                y = fn(y, True)
+            for what, run in inv_res_forms(torch, tensor_cores=False):
+                res[f"form {what} vs its twin"] = must_fail(what, run)
             for what, fn in stem_tail_forms(torch):
                 res[f"form {what} vs its twin"] = must_fail(
                     what, lambda: _exact(torch, fn(True), fn(False), what))

@@ -477,67 +477,215 @@ def inv_res_window(th: int, tw: int, stride: int):
     return stride * th + 3 - stride, stride * tw + 3 - stride
 
 
-def inv_res_smem(cin: int, mc: int, cout: int, th: int, tw: int,
-                 stride: int, elt: int) -> int:
-    """Shared-memory bytes of one inv_res block (csrc/inv_res.cu holds
-    the same layout): f32 project accumulator [Cout, P], rounded dw
-    output [MC, P], expanded window [MC, WINP], chunk weights and
-    biases, then the input window [Cin, WINP] in the compute dtype."""
-    p = th * tw
-    wh, ww = inv_res_window(th, tw, stride)
-    winp = _r4(wh * ww)
-    floats = (cout * p + mc * p + mc * winp + cin * mc + mc * cout
-              + _r4(9 * mc) + 2 * mc)
-    return 4 * floats + elt * cin * winp
-
-
-# output tiles (th, tw), largest first; tw is a multiple of 4 (the
-# kernel's 4-wide vector steps)
-_TILES = sorted(((th, tw) for th in (8, 4, 2, 1) for tw in (32, 16, 8, 4)),
-                key=lambda t: (-t[0] * t[1], -t[1]))
-
-# (cin, cmid, cout, stride) -> (th, tw, mc): the fastest of every tile that
-# fits, measured by ``python3 -m segtpu_torch.kernels.inv_res_sweep --kernel
-# cuda_cores`` at the MobileNet-v2 blocks of a bf16 b8 1024x2048 batch on an
-# H100 (PERF.md)
-_MEASURED_TILES = {
-    (32, 32, 16, 1): (8, 16, 16), (16, 96, 24, 2): (8, 16, 8),
-    (24, 144, 24, 1): (8, 16, 16), (24, 144, 32, 2): (4, 16, 16),
-    (32, 192, 32, 1): (8, 16, 16), (32, 192, 64, 2): (4, 16, 32),
-    (64, 384, 64, 1): (8, 16, 32), (64, 384, 96, 1): (4, 32, 16),
-    (96, 576, 96, 1): (8, 16, 64), (96, 576, 160, 2): (4, 16, 32),
-    (160, 960, 160, 1): (8, 16, 32), (160, 960, 320, 1): (8, 8, 32),
-}
-
-
 def _tile_ok(th, tw, ho, wo):
     """A tile no more than twice the output's extent in each dimension."""
     return (th == 1 or th // 2 < ho) and (tw == 4 or tw // 2 < wo)
 
 
-def inv_res_tile(cin: int, cmid: int, cout: int, ho: int, wo: int,
-                 stride: int, elt: int, batch: int, *, sm_count: int):
-    """(th, tw, mc) of one inv_res launch: the measured tile of the block
-    shape where there is one and it fits; otherwise mc is the largest of
-    32, 16, 8, 4 dividing cmid, and the tile the largest whose shared
-    memory fits that still gives every one of the card's ``sm_count``
-    multiprocessors two blocks (else the smallest that fits)."""
-    t = _MEASURED_TILES.get((cin, cmid, cout, stride))
-    if t is not None and _tile_ok(t[0], t[1], ho, wo) and inv_res_smem(
-            cin, t[2], cout, t[0], t[1], stride, elt) <= _SMEM_LIMIT:
-        return t
-    mc = next((m for m in (32, 16, 8, 4) if cmid % m == 0), None)
-    if mc is None:
-        raise ValueError(f"inv_res: mid width {cmid} is not a multiple of 4")
-    fits = [(th, tw) for th, tw in _TILES if _tile_ok(th, tw, ho, wo)
-            and inv_res_smem(cin, mc, cout, th, tw, stride, elt) <= _SMEM_LIMIT]
-    if not fits:
-        raise ValueError(f"inv_res: no tile fits shared memory for "
-                         f"cin={cin} cmid={cmid} cout={cout}")
-    for th, tw in fits:
-        if batch * _cdiv(ho, th) * _cdiv(wo, tw) >= 2 * sm_count:
-            return th, tw, mc
-    return fits[-1] + (mc,)
+# A CUDA-core inverted-residual launch (csrc/inv_res.cu inv_res_kernel):
+# persistent blocks, each taking th x tw output tiles in turn; the mid
+# channels in chunks of mc; each thread an rp x 4 project tile (rp output
+# channels x 4 pixels) held in registers across every chunk and 8 x 4
+# expand tiles; ceil(cout / rp) * th * tw / 4 threads; with pf, a block
+# prefetches its next tile's window while it computes the current one. The
+# rp the kernel instantiates, per compute dtype:
+INV_RES_TILES = {torch.bfloat16: (4, 8, 12, 20), torch.float32: (4, 8)}
+_IR_RE = 8            # mid channels of an expand thread tile (kRE)
+_IR_SMALL = 13        # floats of a mid channel's small weights (kSmall)
+_IR_SHIFT = 3         # a prefetched window's column 0 (kShift)
+_SM_SMEM = 228 * 1024     # shared memory of an SM (a block reserves 1 KB)
+_SM_REGS = 65536
+_SM_THREADS = 2048
+_IR_MCS = (64, 48, 32, 24, 16, 8, 4)      # mid chunks a plan may take
+_IR_HW = ((1, 2, 4, 8, 16), (4, 8, 16, 32, 64))   # tile rows, columns
+
+
+class InvResPlan(NamedTuple):
+    th: int          # output tile rows
+    tw: int          # output tile columns (a power of 2, >= 4)
+    mc: int          # mid channels of a chunk
+    rp: int          # output channels of a thread's project tile (x 4 px)
+    pf: int          # 1: the next tile's window prefetched (two windows)
+    nt: int          # threads of a block
+    smem: int        # shared bytes
+    blocks: int      # blocks resident on an SM (shared memory, threads,
+                     # registers at the instantiation's cap)
+
+
+def inv_res_threads(rp: int) -> int:
+    """Most threads of a block of the rp instantiation (csrc/inv_res.cu
+    ``max_threads``): 512 where an rp x 4 tile leaves a thread within 128
+    registers (rp <= 12), else 256."""
+    return 512 if rp <= 12 else 256
+
+
+def inv_res_regs(rp: int) -> int:
+    """The register cap of a thread of the rp instantiation: 128 with
+    blocks of up to 512 threads, else the hardware's 255."""
+    return 128 if inv_res_threads(rp) == 512 else 255
+
+
+def inv_res_smem(cin: int, cout: int, mc: int, th: int, tw: int,
+                 stride: int, rp: int, pf: int, expand: bool,
+                 esize: int) -> int:
+    """Shared-memory bytes of one CUDA-core inverted-residual block
+    (csrc/inv_res.cu ``cc::smem_bytes``): the window [cin][rows][cols
+    rounded to 4] in the compute dtype (``esize`` bytes; with pf two of
+    them, their columns from 3 before the window's), each rounded to 16
+    bytes; then f32: with an expand, mid [mc][window] and the chunk's
+    expand weights [cin][mc rounded to 8]; the depthwise output [mc][th
+    tw]; the chunk's project weights [mc][cout rounded to rp]; two buffers
+    of the chunk's small weights (13 floats a mid channel); an int a
+    window quad (its in-image mask)."""
+    wh, ww = inv_res_window(th, tw, stride)
+    xp = wh * _r4(_IR_SHIFT * pf + ww)
+    floats = ((mc * xp + cin * _cdiv(mc, _IR_RE) * _IR_RE if expand else 0)
+              + mc * th * tw + mc * _cdiv(cout, rp) * rp + 2 * _IR_SMALL * mc
+              + xp // 4)
+    return (1 + pf) * _r16(cin * xp * esize) + 4 * floats
+
+
+def inv_res_resident(nt: int, smem: int, regs: int) -> int:
+    """Blocks of ``nt`` threads, ``smem`` shared bytes and ``regs``
+    registers a thread that an H100 SM holds at once."""
+    warps = _cdiv(nt, 32)
+    per_warp = _cdiv(32 * regs, 256) * 256
+    return min(_SM_SMEM // (smem + 1024), _SM_THREADS // (32 * warps),
+               _SM_REGS // (warps * per_warp), 32)
+
+
+def inv_res_plans(cin: int, cmid: int, cout: int, ho: int, wo: int,
+                  stride: int, dtype, expand: bool, vec: bool = True):
+    """Every plan a CUDA-core launch may take: an instantiated rp of
+    ``dtype``, a tile th x tw (no more than twice the output's extent
+    where any tile is), at most ``inv_res_threads`` threads, mc dividing
+    cmid, prefetch or not (prefetch only where ``vec``: the input's rows
+    allow aligned 4-value copies), in 227 KB of shared memory. The sum
+    order does not depend on the plan."""
+    mcs = [m for m in _IR_MCS if cmid % m == 0]
+    esize = torch.tensor([], dtype=dtype).element_size()
+    plans = []
+    for rp in INV_RES_TILES[dtype]:
+        regs = inv_res_regs(rp)
+        for th in _IR_HW[0]:
+            for tw in _IR_HW[1]:
+                nt = _cdiv(cout, rp) * (th * tw // 4)
+                if nt > inv_res_threads(rp):
+                    continue
+                for mc in mcs:
+                    for pf in (0, 1) if vec else (0,):
+                        smem = inv_res_smem(cin, cout, mc, th, tw, stride,
+                                            rp, pf, expand, esize)
+                        if smem <= _SMEM_LIMIT:
+                            plans.append(InvResPlan(
+                                th, tw, mc, rp, pf, nt, smem,
+                                inv_res_resident(nt, smem, regs)))
+    near = [p for p in plans if _tile_ok(p.th, p.tw, ho, wo)]
+    return near or plans
+
+
+def inv_res_cost(plan: InvResPlan, cin: int, cmid: int, cout: int, ho: int,
+                 wo: int, stride: int, batch: int, expand: bool,
+                 sm_count: int, esize: int = 2) -> float:
+    """A model of a launch's time in SM cycles. Each tile's phases, chunk
+    after chunk, cost the larger of their warp-instructions (all counted
+    with their idle lanes) at 4 a cycle when 8 warps or more are resident
+    (half a warp-instruction a cycle for each warp below that) and their
+    shared-memory wavefronts at one a cycle: the expand's 8 x 4 tiles,
+    32 fmaf, a quad of the window (``esize``-byte values) and 2 broadcast
+    weight loads an input channel, 8 quads stored; the depthwise, ~90
+    instructions and ~16 wavefronts a run of 4 outputs;
+    the project's rp x 4 tiles, a quad and rp / 4 broadcasts a mid
+    channel. The barriers' and the staging's latency (mostly hidden with
+    prefetch) are shared by the blocks resident together; the tiles come
+    in whole waves over the card. It only orders plans; the measured
+    table decides the encoder's shapes."""
+    th, tw, mc, rp, pf, nt, _, blocks = plan
+    re = _IR_RE
+    wh, ww = inv_res_window(th, tw, stride)
+    xp = wh * _r4(_IR_SHIFT * pf + ww)
+    warps, chunks = _cdiv(nt, 32), cmid // mc
+    rate = min(4.0, 0.5 * blocks * warps)
+    e_rounds = _cdiv(_cdiv(mc, re) * (xp // 4), nt) * expand
+    rows = 2 if th % 2 == 0 else 1      # tile rows a depthwise item
+    d_rounds = _cdiv(mc * th * (tw // 4) // rows, nt)
+    instr = warps * (e_rounds * ((4 * re + 1 + re // 4) * cin + 8 * re)
+                     + d_rounds * rows * (80 + 10 * stride)
+                     + mc * (4 * rp + rp // 4 + 4))
+    waves_smem = warps * (e_rounds * (cin * (esize + re // 4) + 4 * re)
+                          + d_rounds * rows * 16 + mc * (4 + rp // 4))
+    per_chunk = max(instr / rate, waves_smem)
+    stage = warps * _cdiv(cin * xp // 4, nt) * (10 if pf else 30) / rate
+    latency = (chunks * 3 * 300 + (300 if pf else 2000)) / blocks
+    grid = batch * _cdiv(ho, th) * _cdiv(wo, tw)
+    waves = _cdiv(grid, sm_count * blocks)
+    return waves * blocks * (chunks * per_chunk + stage + latency)
+
+
+# (cin, cmid, cout, stride) -> (th, tw, mc, rp, pf): of the plans
+# ``python3 segtpu_torch/kernels/inv_res_sweep.py --top 200`` times at the
+# MobileNet-v2 blocks of a bf16 b8 1024x2048 batch on an H100, the one with
+# the least time summed over a shape's blocks (PERF.md)
+_MEASURED_PLANS = {
+    (32, 32, 16, 1): (16, 32, 8, 8, 1),
+    (16, 96, 24, 2): (8, 32, 24, 4, 1),
+    (24, 144, 24, 1): (8, 64, 16, 12, 0),
+    (24, 144, 32, 2): (8, 32, 24, 4, 0),
+    (32, 192, 32, 1): (16, 32, 24, 8, 0),
+    (32, 192, 64, 2): (8, 32, 24, 8, 0),
+    (64, 384, 64, 1): (8, 32, 32, 8, 0),
+    (64, 384, 96, 1): (8, 32, 32, 12, 0),
+    (96, 576, 96, 1): (8, 32, 32, 12, 0),
+    (96, 576, 160, 2): (4, 32, 24, 20, 0),
+    (160, 960, 160, 1): (4, 32, 32, 20, 0),
+    (160, 960, 320, 1): (4, 16, 64, 20, 0),
+}
+
+
+def inv_res_plan(cin: int, cmid: int, cout: int, ho: int, wo: int,
+                 stride: int, dtype, batch: int, expand: bool, *,
+                 sm_count: int, vec: bool = True) -> InvResPlan:
+    """The plan of one CUDA-core launch: for bf16, the measured plan of the
+    block shape where there is one and it is among ``inv_res_plans``;
+    otherwise the plan ``inv_res_cost`` rates fastest."""
+    plans = inv_res_plans(cin, cmid, cout, ho, wo, stride, dtype, expand,
+                          vec)
+    if not plans:
+        raise ValueError(f"inv_res: no plan fits for cin={cin} cmid={cmid} "
+                         f"cout={cout}")
+    if dtype == torch.bfloat16:
+        t = _MEASURED_PLANS.get((cin, cmid, cout, stride))
+        hit = [p for p in plans if p[:5] == t]
+        if hit:
+            return hit[0]
+    esize = torch.tensor([], dtype=dtype).element_size()
+    return min(plans, key=lambda p: inv_res_cost(
+        p, cin, cmid, cout, ho, wo, stride, batch, expand, sm_count, esize))
+
+
+_inv_res_plan = functools.lru_cache(maxsize=None)(inv_res_plan)
+
+
+def inv_res_args(plan: InvResPlan, b: int, cin: int, cmid: int, cout: int,
+                 h: int, w: int, stride: int, residual: bool,
+                 bf16: bool) -> tuple:
+    """The 15 ints the C entry ``segtpu_inv_res`` takes after its eight
+    pointers: the shapes, the plan's (th, tw, mc, rp, pf), the residual
+    and bf16 flags and the plan's shared bytes."""
+    return (b, cin, cmid, cout, h, w, stride, plan.th, plan.tw, plan.mc,
+            plan.rp, plan.pf, int(residual), int(bf16), plan.smem)
+
+
+def pack_inv_res(w_exp, w_proj, dtype):
+    """The CUDA-core kernel's weights, (expand or None, project): the
+    OIHW expand [Cmid, Cin, 1, 1] and project [Cout, Cmid, 1, 1] weights
+    rounded to the compute ``dtype`` and held as f32 [Cin][Cmid] and
+    [Cmid][Cout], so that each chunk's weights are contiguous rows. The
+    values are the compute dtype's: the products do not change."""
+    def t(wt):
+        return (wt.to(dtype).float().reshape(wt.shape[0], wt.shape[1])
+                .t().contiguous())
+    return (None if w_exp is None else t(w_exp)), t(w_proj)
 
 
 def _inv_res_geometry(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, stride,
@@ -641,30 +789,75 @@ def _inv_res_kernel_args(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj,
                       for v in (b_exp, w_dw, b_dw, b_proj))
 
 
+def _check_inv_res_packed(packed, w_exp, w_proj, dev, what):
+    """``packed`` (``pack_inv_res``'s pair, or None to pack for this
+    call) checked against the block's weights: f32, contiguous, on x's
+    device. Returns the pair."""
+    if packed is None:
+        return None
+    if len(packed) != 2:
+        raise ValueError(f"{what}: packed is (expand, project), got "
+                         f"{len(packed)} weights")
+    for pk, wt in zip(packed, (w_exp, w_proj)):
+        if (pk is None) != (wt is None):
+            raise ValueError(f"{what}: packed weights do not match the "
+                             f"block's (an expand without its pair)")
+        if pk is None:
+            continue
+        want = (wt.shape[1], wt.shape[0])
+        if (tuple(pk.shape) != want or pk.dtype != torch.float32
+                or pk.device != dev or not pk.is_contiguous()):
+            raise ValueError(f"{what}: packed weight must be {want} f32 "
+                             f"contiguous on {dev} (pack_inv_res), got "
+                             f"{tuple(pk.shape)} {pk.dtype} on {pk.device}")
+    return packed
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_res_entry():
+    from segtpu_torch.kernels._build import load
+    fn = load("inv_res").segtpu_inv_res
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_res_tc_entry():
+    from segtpu_torch.kernels._build import load
+    fn = load("inv_res").segtpu_inv_res_tc
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _inv_res_launch(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
-                    stride: int, residual: bool, what: str, tile=None):
+                    stride: int, residual: bool, what: str, tile=None,
+                    packed=None):
     """``inv_res_kernel`` (CUDA cores, bf16 or f32) on a CUDA tensor;
-    ``tile`` (th, tw, mc), else ``inv_res_tile``'s."""
+    ``tile`` an ``InvResPlan``, else ``inv_res_plan``'s; ``packed``
+    ``pack_inv_res``'s weights, else packed for this call."""
     (b, cin, cmid, cout, h, w), (be, wd, bd, bp) = _inv_res_kernel_args(
         x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, stride, residual, what)
     dev = x.device
-    we, wp = _on(w_exp, x.dtype, dev), _on(w_proj, x.dtype, dev)
-    th, tw, mc = tile or inv_res_tile(cin, cmid, cout, h // stride,
-                                      w // stride, stride, x.element_size(),
-                                      b, sm_count=_sm_count(dev))
+    pe, pp = (_check_inv_res_packed(packed, w_exp, w_proj, dev, what)
+              or pack_inv_res(w_exp, w_proj, x.dtype))
+    if be is not None and be.data_ptr() % 16:   # read by 16-byte copies
+        be = be.clone()
+    vec = w % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
+    plan = tile or _inv_res_plan(cin, cmid, cout, h // stride, w // stride,
+                                 stride, x.dtype, b, w_exp is not None,
+                                 sm_count=_sm_count(dev), vec=vec)
     out = torch.empty((b, cout, h // stride, w // stride), dtype=x.dtype,
                       device=dev)
-    from segtpu_torch.kernels._build import load
-    fn = load("inv_res").segtpu_inv_res
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = _launch(fn, x, x.data_ptr(),
-                 we.data_ptr() if we is not None else None,
+    rc = _launch(_inv_res_entry(), x, x.data_ptr(),
+                 pe.data_ptr() if pe is not None else None,
                  be.data_ptr() if be is not None else None, wd.data_ptr(),
-                 bd.data_ptr(), wp.data_ptr(), bp.data_ptr(), out.data_ptr(),
-                 b, cin, cmid, cout, h, w, stride, th, tw, mc, int(residual),
-                 int(x.dtype == torch.bfloat16))
+                 bd.data_ptr(), pp.data_ptr(), bp.data_ptr(), out.data_ptr(),
+                 *inv_res_args(plan, b, cin, cmid, cout, h, w, stride,
+                               residual, x.dtype == torch.bfloat16))
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     return out
@@ -689,12 +882,7 @@ def _inv_res_tc_launch(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
         sm_count=_sm_count(dev))
     out = torch.empty((b, cout, h // stride, w // stride), dtype=x.dtype,
                       device=dev)
-    from segtpu_torch.kernels._build import load
-    fn = load("inv_res").segtpu_inv_res_tc
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = _launch(fn, x, x.data_ptr(),
+    rc = _launch(_inv_res_tc_entry(), x, x.data_ptr(),
                  we.data_ptr() if we is not None else None,
                  be.data_ptr() if be is not None else None, wd.data_ptr(),
                  bd.data_ptr(), wp.data_ptr(), bp.data_ptr(), out.data_ptr(),
@@ -706,32 +894,38 @@ def _inv_res_tc_launch(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
 
 
 def inv_res_chw(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
-                residual: bool = False, use_kernels: bool = True):
+                residual: bool = False, use_kernels: bool = True,
+                packed=None):
     """Fused stride-1 inverted residual, x [B, Cin, H, W] -> [B, Cout,
     H, W]: expand 1x1 + relu6 (skipped when ``w_exp`` is None), dw 3x3
     + relu6, project 1x1 (+ x when ``residual``), BN folded into every
     OIHW weight. On a CUDA tensor this launches the CUDA-core kernel,
-    bf16 or f32 (``inv_res_chw.launches``)."""
+    bf16 or f32 (``inv_res_chw.launches``), with ``packed`` (``pack_inv_res``
+    of the expand and project weights, made once by the weights' owner)
+    or weights packed for the call."""
     if _use_plain(x, use_kernels, "inv_res_chw"):
         return inv_res_chw_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj,
                                  residual=residual)
     out = _inv_res_launch(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj,
-                          stride=1, residual=residual, what="inv_res_chw")
+                          stride=1, residual=residual, what="inv_res_chw",
+                          packed=packed)
     inv_res_chw.launches += 1
     return out
 
 
 def inv_res_s2_chw(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
-                   use_kernels: bool = True):
+                   use_kernels: bool = True, packed=None):
     """Fused stride-2 inverted residual (torch pad=1: output (i, j) reads
     input rows 2i-1..2i+1 and columns 2j-1..2j+1), x [B, Cin, H, W]
     (H, W even) -> [B, Cout, H/2, W/2]. On a CUDA tensor this launches
-    the CUDA-core kernel (``inv_res_s2_chw.launches``)."""
+    the CUDA-core kernel (``inv_res_s2_chw.launches``; ``packed`` as for
+    ``inv_res_chw``)."""
     if _use_plain(x, use_kernels, "inv_res_s2_chw"):
         return inv_res_s2_chw_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj,
                                     b_proj)
     out = _inv_res_launch(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj,
-                          stride=2, residual=False, what="inv_res_s2_chw")
+                          stride=2, residual=False, what="inv_res_s2_chw",
+                          packed=packed)
     inv_res_s2_chw.launches += 1
     return out
 

@@ -5,9 +5,11 @@
 weights of a ``MobileNetV2`` from its f32 weights and returns a
 ``FoldedMobileNetV2``: the s2d stem as one ``conv_chw`` (k=2, relu6),
 the 13 stride-1 blocks as ``inv_res_chw`` and the 4 stride-2 blocks as
-``inv_res_s2_chw``. Its forward takes the space-to-depth planes
-[N, 12, H/2, W/2] and returns the four taps (strides 4/8/16/32), with
-the tap rule of ``encoders.MobileNetV2``. Dense weights are rounded to
+``inv_res_s2_chw``, each handed its expand and project weights in the
+CUDA-core kernel's layout (``pack_inv_res``), packed once here. Its
+forward takes the space-to-depth planes [N, 12, H/2, W/2] and returns
+the four taps (strides 4/8/16/32), with the tap rule of
+``encoders.MobileNetV2``. Dense weights are rounded to
 the compute dtype once, after folding in f32; depthwise weights and
 biases stay f32 (the JAX path's numerics).
 
@@ -27,7 +29,7 @@ import torch
 import torch.nn as nn
 
 from segtpu_torch.kernels.chw_ops import (conv_chw, fold_bn, inv_res_chw,
-                                          inv_res_s2_chw)
+                                          inv_res_s2_chw, pack_inv_res)
 from segtpu_torch.models.encoders import (_MBV2_CFG, _TAP_STAGES,
                                           MobileNetV2, stem_s2d_kernel)
 from segtpu_torch.parallel.collectives import halo_exchange
@@ -62,14 +64,21 @@ class FoldedInvRes(nn.Module):
         w, b = _fold(blk.project)
         self.register_buffer("w_proj", w.to(compute_dtype))
         self.register_buffer("b_proj", b)
+        # the CUDA-core kernel's layout of the expand and project weights,
+        # packed once (not saved: they are the weights above, transposed)
+        pe, pp = pack_inv_res(self.w_exp, self.w_proj, compute_dtype)
+        self.register_buffer("packed_exp", pe, persistent=False)
+        self.register_buffer("packed_proj", pp, persistent=False)
 
     def forward(self, x, use_kernels: bool = True):
         args = (x, self.w_exp, self.b_exp, self.w_dw, self.b_dw,
                 self.w_proj, self.b_proj)
+        packed = (self.packed_exp, self.packed_proj)
         if self.stride == 2:
-            return inv_res_s2_chw(*args, use_kernels=use_kernels)
+            return inv_res_s2_chw(*args, use_kernels=use_kernels,
+                                  packed=packed)
         return inv_res_chw(*args, residual=self.residual,
-                           use_kernels=use_kernels)
+                           use_kernels=use_kernels, packed=packed)
 
 
 class FoldedMobileNetV2(nn.Module):

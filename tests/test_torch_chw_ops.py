@@ -27,8 +27,8 @@ from segtpu_torch.convert import load_jax_params
 from segtpu_torch.core.layers import ConvBN
 from segtpu_torch.kernels.chw_ops import (
     conv_chw, conv_chw_plain, fold_bn, inv_res_chw, inv_res_chw_plain,
-    inv_res_s2_chw, inv_res_s2_chw_plain, inv_res_smem, inv_res_tile,
-    _MEASURED_TILES)
+    inv_res_s2_chw, inv_res_s2_chw_plain, inv_res_smem, inv_res_plan,
+    inv_res_plans, inv_res_cost, INV_RES_TILES, _MEASURED_PLANS)
 from segtpu_torch.models.encoders import InvRes, _MBV2_CFG
 from segtpu_torch.models.fast_encoder import FoldedInvRes
 
@@ -230,27 +230,37 @@ def _mbv2_shapes(h, w):
 @pytest.mark.parametrize("elt", [2, 4])
 @pytest.mark.parametrize("hw", [(512, 1024), (32, 48)])
 def test_inv_res_tile_fits_every_encoder_block(elt, hw):
-    """The host's tile choice for every block shape of the encoder (the
+    """The host's plan for every block shape of the encoder (the
     1024x2048 frame's and a small one's) obeys the kernel's rules, and
-    the 1024x2048 bf16 blocks take their measured tiles."""
+    the 1024x2048 bf16 blocks take their measured plans."""
+    dtype = torch.bfloat16 if elt == 2 else torch.float32
     for cin, cmid, cout, st, ho, wo, expand in _mbv2_shapes(*hw):
-        th, tw, mc = inv_res_tile(cin, cmid, cout, ho, wo, st, elt, 8,
-                                  sm_count=132)
-        assert tw % 4 == 0 and mc % 4 == 0 and cmid % mc == 0
-        assert th >= 1 and (th == 1 or th // 2 < ho)
-        assert inv_res_smem(cin, mc, cout, th, tw, st, elt) <= 227 * 1024
+        p = inv_res_plan(cin, cmid, cout, ho, wo, st, dtype, 8, expand,
+                         sm_count=132)
+        assert p.rp in INV_RES_TILES[dtype]
+        assert p.tw % 4 == 0 and p.mc % 4 == 0 and cmid % p.mc == 0
+        assert p.th >= 1 and (p.th == 1 or p.th // 2 < ho)
+        assert p.nt == -(-cout // p.rp) * (p.th * p.tw // 4) <= (
+            512 if p.rp <= 12 else 256)
+        assert p.smem == inv_res_smem(cin, cout, p.mc, p.th, p.tw, st, p.rp,
+                                      p.pf, expand, elt) <= 227 * 1024
         if hw == (512, 1024) and elt == 2:
-            assert (th, tw, mc) == _MEASURED_TILES[(cin, cmid, cout, st)]
+            assert tuple(p[:5]) == _MEASURED_PLANS[(cin, cmid, cout, st)]
 
 
 def test_inv_res_tile_rule_without_a_measurement():
-    """A shape outside the table: the largest tile that still gives every
-    multiprocessor two blocks, with the largest chunk dividing the mid
-    width (16 of 240)."""
-    assert inv_res_tile(40, 240, 40, 64, 128, 1, 2, 8, sm_count=132) == \
-        (4, 32, 16)
-    # a small batch cannot fill the card: the smallest tile that fits
-    assert inv_res_tile(40, 240, 40, 8, 8, 1, 2, 1, sm_count=132) == (1, 4, 16)
+    """A shape outside the table: the plan the cost model rates fastest of
+    those that fit (mc dividing the mid width 240); a small batch on a
+    small map takes a tile within twice the map's extent."""
+    plans = inv_res_plans(40, 240, 40, 64, 128, 1, torch.bfloat16, True)
+    p = inv_res_plan(40, 240, 40, 64, 128, 1, torch.bfloat16, 8, True,
+                     sm_count=132)
+    assert p == min(plans, key=lambda q: inv_res_cost(
+        q, 40, 240, 40, 64, 128, 1, 8, True, 132))
+    assert 240 % p.mc == 0
+    p = inv_res_plan(40, 240, 40, 8, 8, 1, torch.bfloat16, 1, True,
+                     sm_count=132)
+    assert p.th <= 8 and p.tw <= 8
 
 
 def test_wrappers_run_the_plain_version_on_cpu():
