@@ -15,7 +15,12 @@ Phases, each a hard failure (non-zero exit) when it fails:
    bf16 logits [8,19,256,512] -> 1024x2048, uncropped, cropped to
    1000x2000, at align_corners False and in f32, and on one frame's
    [19,256,384] -> 1024x1536 cropped to the pad path's 1000x1500 (a
-   ragged width): masks bit for bit (tail_cases).
+   ragged width): masks bit for bit (tail_cases). Then the H-sharded
+   tail (the H-first kernel on each shard's window) and the W-first
+   tail at other sizes, bf16 and f32, bit for bit (window_flat_forms:
+   every shard of a split stitched, at align_corners False, an odd
+   width and n = 8; the W-first tail cropped to G2's 500x498, an odd
+   frame with a ragged width, 5 classes).
 4. encoder: the folded arch0 encoder (seeded weights, BatchNorm
    perturbed and folded) stage by stage on the front's output for the
    seeded b8 frames: each of the 18 launches of the main path (stem
@@ -55,8 +60,10 @@ Phases, each a hard failure (non-zero exit) when it fails:
    function as PyTorch library calls (cuDNN convolutions, F.interpolate;
    kernel and library in turns, each over a ~25 ms window); likewise on
    genotype G2's b8 512x512 path for the kernels arch0 does not reach
-   (pair_op_chw, pw_multi_chw) and the W-first tail on its logits (G2's
-   conv_chw k = 1 and resize_chw calls bit for bit, untimed). The
+   (pair_op_chw, pw_multi_chw) and the W-first tail on its logits, bf16
+   and f32 bit for bit (flat_tail_checks), timed beside the H-first
+   tail at the same shape (G2's conv_chw k = 1 and resize_chw calls bit
+   for bit, untimed). The
    bf16 taps and logits are held against the unfolded model run in f32
    through cuDNN (worst error <= 3 % of the largest tap value, <= 5 % of
    the largest logit), the kernels' encoder taps are as close to that
@@ -118,8 +125,8 @@ Phases, each a hard failure (non-zero exit) when it fails:
    block computes whole at n = 4) at 2x512x1024 (arch2 also at n = 2):
    masks bit-equal to the unsharded engine's. mode="data", 4 parts of the
    b8 batch: masks bit-equal, DATA_LAUNCHES. Times with CUDA events: the
-   sharded tail per shard and summed, one space call and one data call
-   beside the unsharded call.
+   sharded tail per shard and summed (beside a quarter of the unsharded
+   tail), one space call and one data call beside the unsharded call.
 
 9. experiments: the four ported TPU experiments (segtpu_torch.scripts:
    exp_vpu_floor, exp_front_kernel, ab_normalize, exp_tail_flat), each
@@ -143,16 +150,18 @@ node_tc_kernel, pointwise.cu's pw_tc_kernel, inv_res.cu's
 inv_res_tc_kernel), and conv_chw's k = 1 and k = 2 (the stem),
 resize_chw's and the served inverted residual's (inv_res.cu's
 inv_res_kernel) outputs (bf16 and f32), rounded once more, to BITS
-significant bits, and the tail kernel's input likewise, and the checks
+significant bits, and the input of the tail kernels' launches (H-first,
+H-sharded, W-first) likewise, and the checks
 that hold those kernels at a tolerance (phase 4's 17 tensor-core block
 stages, phase 5's calls, encoder taps and f32 reference, phase 6's arch0
 and G2 masks, phase 8's shard logits) or bit for bit (conv_chw k = 1 and
 resize_chw at every launch of phase 5's main, G2 and f32 paths, the
 forms, and phase 8's sharded decoder; the stem and the 17 served blocks
 at phase 4's b8 and f32 launches, their forms and windows, phase 8's four
-shard stems; the tail's phase 3 cases and forms, and phase 8's unsharded
-rows) run on it. It prints how many fail and exits 0 when every one of
-them fails.
+shard stems; the tail's phase 3 cases and forms, window_flat_forms,
+G2's flat tail in bf16 and f32 on G2's logits made before the rounding,
+and phase 8's unsharded rows) run on it.
+It prints how many fail and exits 0 when every one of them fails.
 """
 
 from __future__ import annotations
@@ -264,11 +273,58 @@ def tail_cases(torch, logits):
             for what, x, grid, crop, ac in cases]
 
 
+def window_flat_forms(torch):
+    """[(what, fn(use_kernels))]: the H-sharded tail's and the W-first
+    tail's forms at other sizes, bf16 and f32. The sharded tail's is
+    every shard of an n-way split (windows from halo_exchange), stitched:
+    at align_corners False, at an odd width (the scalar load and store
+    paths), and at n = 8 (three logit rows a shard at 24 rows); the
+    W-first tail's: G2's shape cropped to 500x498 (a width that is not a
+    multiple of 4: the scalar store), an odd frame cropped to a ragged
+    width at align_corners False, and 5 classes uncropped."""
+    from segtpu_torch.kernels.upsample_argmax import (upsample_argmax_flat,
+                                                      upsample_argmax_sharded)
+    from segtpu_torch.parallel import halo_exchange
+    g = torch.Generator(device="cuda").manual_seed(12)
+    out = []
+    for dt in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        for shape, grid, n, ac in [((2, K, 64, 128), (256, 512), 4, False),
+                                   ((2, K, 64, 93), (256, 372), 4, True),
+                                   ((2, K, 64, 128), (256, 512), 8, True),
+                                   ((1, 7, 24, 37), (96, 150), 8, False)]:
+            x = torch.randn(shape, generator=g, device="cuda").to(dt)
+            ext = [e.contiguous() for e in
+                   halo_exchange(list(x.chunk(n, dim=2)), 1, 1)]
+            out.append((f"sharded tail {shape} -> {grid} n={n} "
+                        f"align_corners={ac} {tag}",
+                        lambda uk, ext=ext, grid=grid, n=n, ac=ac: torch.cat(
+                            [upsample_argmax_sharded(
+                                e, grid, shard=s, n_shards=n,
+                                align_corners=ac, use_kernels=uk)
+                             for s, e in enumerate(ext)], dim=1)))
+        for shape, grid, crop, ac in [((N, K, 128, 128), (H2, W2),
+                                       (500, 498), True),
+                                      ((2, K, 37, 45), (148, 180),
+                                       (145, 179), False),
+                                      ((1, 5, 16, 24), (64, 96), None, True)]:
+            b, k, h, w = shape
+            x = torch.randn((b, k, h * w), generator=g,
+                            device="cuda").to(dt)
+            out.append((f"flat tail {shape} -> {grid} crop={crop} "
+                        f"align_corners={ac} {tag}",
+                        lambda uk, x=x, hw=(h, w), grid=grid, crop=crop, ac=ac:
+                        upsample_argmax_flat(x, hw, grid, crop_hw=crop,
+                                             align_corners=ac,
+                                             use_kernels=uk)))
+    return out
+
+
 def phase_tail(torch):
     g = torch.Generator(device="cuda").manual_seed(2)
     logits = torch.randn((N, K, H // 4, W // 4), generator=g,
                          device="cuda").to(torch.bfloat16)
-    for what, fn in tail_cases(torch, logits):
+    for what, fn in tail_cases(torch, logits) + window_flat_forms(torch):
         got = fn(True)
         check(got.dtype == torch.uint8, f"{what}: mask of {got.dtype}")
         _exact(torch, got, fn(False), what)
@@ -993,40 +1049,62 @@ def exact_forms(torch):
     return forms(torch, seeded(torch, 9))
 
 
-def flat_tail(torch, logits, r, stage_ms):
-    """The W-first tail on G2's decoder logits -> 512x512 masks, against
-    its plain twin (masks equal on >= 99.99 %, every mismatch a near-tie
-    of the W-first sums), timed with F.interpolate + argmax."""
-    import torch.nn.functional as F
+def flat_tail_checks(torch, logits):
+    """[(what, check())]: the W-first tail on G2's decoder logits ->
+    512x512 masks, bf16 and f32, bit for bit its plain twin's; each
+    returns the worst difference of mask values (0)."""
     from segtpu_torch.kernels.upsample_argmax import (
-        upsample_argmax, upsample_argmax_flat, upsample_argmax_flat_plain)
+        upsample_argmax_flat, upsample_argmax_flat_plain)
     b, k, h, w = logits.shape
     flat = logits.reshape(b, k, h * w)
+    out = []
     for x in (flat, flat.float()):
-        got = upsample_argmax_flat(x, (h, w), (H2, W2))
-        want = upsample_argmax_flat_plain(x, (h, w), (H2, W2))
-        torch.cuda.synchronize()
-        check(got.shape == (b, H2, W2), f"flat tail shape {tuple(got.shape)}")
-        rate = (got == want).float().mean().item()
-        print(f"[decoder] flat tail {x.dtype}: agreement={rate!r}")
-        check(rate >= 0.9999, f"flat tail agreement {rate} < 99.99 %")
-        r["max_abs_err"] = max(r["max_abs_err"],
-                               (got.int() - want.int()).abs().max().item())
-    ms = cuda_ms(lambda: upsample_argmax_flat(flat, (h, w), (H2, W2)), 20)
+        what = f"G2 flat tail {tuple(x.shape)} {x.dtype} -> {H2}x{W2}"
+        out.append((what, lambda x=x, what=what: _exact(
+            torch, upsample_argmax_flat(x, (h, w), (H2, W2)),
+            upsample_argmax_flat_plain(x, (h, w), (H2, W2)), what)))
+    return out
+
+
+def flat_tail(torch, logits, r, stage_ms):
+    """The W-first tail on G2's decoder logits: ``flat_tail_checks``, then
+    timed in turns with F.interpolate + argmax and the H-first tail at
+    the same shape, each over a ~25 ms window, and both tails as the
+    launches of a CUDA graph (the card's time without the Python that
+    issues them: at ~0.04 ms a call the host can set the pace)."""
+    import torch.nn.functional as F
+    from segtpu_torch.kernels.stem_tail_probe import graph_ms
+    from segtpu_torch.kernels.upsample_argmax import (
+        upsample_argmax, upsample_argmax_flat, upsample_argmax_flat_plain)
+    from segtpu_torch.scripts import cuda_ms as adaptive_ms, turns_ms
+    b, k, h, w = logits.shape
+    flat = logits.reshape(b, k, h * w)
+    for _, run in flat_tail_checks(torch, logits):
+        r["max_abs_err"] = max(r["max_abs_err"], run())
+    t = turns_ms({
+        "ms": lambda: upsample_argmax_flat(flat, (h, w), (H2, W2)),
+        "lib": lambda: F.interpolate(logits.float(), size=(H2, W2),
+                                     mode="bilinear",
+                                     align_corners=True).argmax(1),
+        "h_first": lambda: upsample_argmax(logits, (H2, W2))}, adaptive_ms)
+    ms, lib_ms, four_d_ms = t["ms"], t["lib"], t["h_first"]
+    r["graph_ms"] = graph_ms(
+        torch, lambda: upsample_argmax_flat(flat, (h, w), (H2, W2)))
+    four_d_graph_ms = graph_ms(torch, lambda: upsample_argmax(logits,
+                                                               (H2, W2)))
     plain_ms = cuda_ms(lambda: upsample_argmax_flat_plain(flat, (h, w),
                                                           (H2, W2)), 3)
-    lib_ms = cuda_ms(lambda: F.interpolate(
-        logits.float(), size=(H2, W2), mode="bilinear",
-        align_corners=True).argmax(1), 10)
-    four_d_ms = cuda_ms(lambda: upsample_argmax(logits, (H2, W2)), 20)
     print(f"[timing] G2 flat tail {tuple(logits.shape)} -> {H2}x{W2}: "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
-          f"H-first tail {four_d_ms:.4f} ms")
+          f"H-first tail {four_d_ms:.4f} ms; as CUDA graphs: "
+          f"{r['graph_ms']!r} ms, H-first tail {four_d_graph_ms!r} ms")
     stage_ms.append(("G2", "upsample_argmax_flat", [b, H2, W2], ms, plain_ms,
                      lib_ms))
     r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, n=1,
              bytes=logits.numel() * logits.element_size() + b * H2 * W2,
-             dot=0, f32=b * k * W2 * (3 * h + 3 * H2 + 1))
+             # W pass 2 mul + 1 add per (class, input row, output column),
+             # H pass 2 mul + 1 add and 1 compare per (class, output pixel)
+             dot=0, f32=b * k * W2 * (3 * h + 4 * H2))
 
 
 def phase_decoder_forms(torch):
@@ -1549,10 +1627,11 @@ def sharded_tail_rows(torch, logits) -> int:
     return worst
 
 
-def sharded_tail(torch, logits):
+def sharded_tail(torch, logits, tail_ms):
     """upsample_argmax_sharded on the tail phase's logits: the checks of
-    ``sharded_tail_rows``, then the N_SHARDS shards timed. Returns the
-    kernel's row of the kernels line, without its launches."""
+    ``sharded_tail_rows``, then the N_SHARDS shards timed, beside the
+    unsharded tail's ``tail_ms`` over N_SHARDS. Returns the kernel's row
+    of the kernels line, without its launches."""
     import torch.nn.functional as F
     from segtpu_torch.kernels.upsample_argmax import (
         upsample_argmax_sharded, upsample_argmax_sharded_plain)
@@ -1577,7 +1656,8 @@ def sharded_tail(torch, logits):
     print(f"[timing] sharded tail n={n}: per shard "
           f"{[round(v, 4) for v in r['per_shard_ms']]} ms, summed "
           f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-          f"{r['library_ms']:.4f} ms")
+          f"{r['library_ms']:.4f} ms; the unsharded tail over {n}: "
+          f"{tail_ms / n:.4f} ms")
     return r
 
 
@@ -2013,7 +2093,8 @@ def coarse_decoder(torch, bits: int):
     k = 2 (the stem's) dense kernels, resize_chw's kernel and the served
     inverted residual (``inv_res.cu``'s ``inv_res_kernel``) in bf16 and
     f32; and the tail kernel's input, a rounded copy of the logits, so
-    that its masks are those of other logits."""
+    that its masks are those of other logits, and so of the H-sharded and
+    W-first tails' launches."""
     import importlib
     from segtpu_torch.kernels import chw_ops
     rz = importlib.import_module("segtpu_torch.kernels.resize_chw")
@@ -2053,8 +2134,9 @@ def coarse_decoder(torch, bits: int):
                ("_node_launch", "_pw_launch", "_inv_res_tc_launch")]
     patches += [(chw_ops, "_conv_launch", coarse_conv),
                 (chw_ops, "_inv_res_launch", coarse_resize),
-                (rz, "_resize_launch", coarse_resize),
-                (ua, "_tail_launch", coarse_tail)]
+                (rz, "_resize_launch", coarse_resize)]
+    patches += [(ua, n, coarse_tail) for n in
+                ("_tail_launch", "_sharded_launch", "_flat_launch")]
     saved = [(mod, n, getattr(mod, n)) for mod, n, _ in patches]
     for mod, n, make in patches:
         setattr(mod, n, make(getattr(mod, n)))
@@ -2103,6 +2185,12 @@ def phase_control(torch, bits: int) -> dict:
     from segtpu_torch.kernels.front import normalize_s2d_front
     from segtpu_torch.models.fast_encoder import fold_encoder
     res = {}
+    # G2's decoder logits as phase 5 makes them, before the control: the
+    # control's own decoder rounds them to BITS bits already, and rounding
+    # them once more (the flat tail's control) would change nothing
+    *_, g2_logits, g2_calls = decoder_calls(torch, G2, (H2, W2),
+                                            torch.bfloat16, N)
+    del g2_calls
     with coarse_decoder(torch, bits):
         # phase 4's block stages on phase 2's frames, each fed the last
         g = torch.Generator(device="cuda").manual_seed(1)
@@ -2145,7 +2233,8 @@ def phase_control(torch, bits: int) -> dict:
             g = torch.Generator(device="cuda").manual_seed(2)
             logits = torch.randn((N, K, H // 4, W // 4), generator=g,
                                  device="cuda").to(torch.bfloat16)
-            for what, fn in tail_cases(torch, logits):
+            for what, fn in tail_cases(torch, logits) + window_flat_forms(
+                    torch):
                 res[f"{what} vs its twin"] = must_fail(
                     what, lambda: _exact(torch, fn(True), fn(False), what))
             res["sharded tail vs the unsharded kernel's rows"] = must_fail(
@@ -2174,14 +2263,18 @@ def phase_control(torch, bits: int) -> dict:
                 ("G2", G2, (H2, W2), torch.bfloat16, N),
                 ("f32 arch0", _A["arch0"], (128, 256), torch.float32, 2),
                 ("f32 G2", G2, (128, 128), torch.float32, 2)):
-            *_, calls = decoder_calls(torch, genotype, hw, dtype, batch)
+            *_, logits, calls = decoder_calls(torch, genotype, hw, dtype,
+                                              batch)
             with torch.inference_mode():
                 for i, (name, fn, a) in enumerate(calls):
                     if exact_call(name, a):
                         what = f"{path} call {i:2d} {name}"
                         res[f"{what} vs its twin"] = must_fail(
                             what, lambda: check_call(torch, name, fn, a, what))
-            del calls
+                if path == "G2":
+                    for what, run in flat_tail_checks(torch, g2_logits):
+                        res[f"{what} vs its twin"] = must_fail(what, run)
+            del calls, logits
         with torch.inference_mode():
             for what, fn in exact_forms(torch):
                 res[f"form {what} vs its twin"] = must_fail(
@@ -2252,7 +2345,7 @@ def main() -> None:
     dec_ms = phase_decoder(torch, work)
     seg, ref, frames, launches, _, masks, gaps = phase_slice(torch)
     t = phase_timing(torch, img, logits, seg, ref, frames, gaps)
-    work["upsample_argmax_sharded"] = sharded_tail(torch, logits)
+    work["upsample_argmax_sharded"] = sharded_tail(torch, logits, t["tail"])
     space_launches, space_rate = phase_sharded(torch, seg, ref, frames, masks,
                                                gaps, t)
     launches.update({n: space_launches[n] for n in SHARDED_ONLY})
@@ -2301,7 +2394,8 @@ def main() -> None:
             "bound_by": b[name][1], "library_ms": r["library_ms"],
             **({"tensor_cores_ms": r["tc_ms"],
                 "tensor_cores_max_abs_err": r["tc_max_abs_err"]}
-               if "tc_ms" in r else {})})
+               if "tc_ms" in r else {}),
+            **({"graph_ms": r["graph_ms"]} if "graph_ms" in r else {})})
     if "--profile" in sys.argv[1:]:
         profile(torch, seg, frames)
     gpu = gpu_line()

@@ -535,7 +535,8 @@ def test_tail_twin_matches_pallas(case, ac, dtype):
 
 def test_wrappers_take_the_twins_on_cpu():
     """On a CPU tensor the stem and the tail run their twins and launch
-    nothing; each C entry is made once."""
+    nothing; each C entry is made once, and a shard's tables are
+    uploaded once (the sharded tail launches the H-first entry)."""
     x, wt, b, _, _ = _stem_operands(12, 32, 6, 40, torch.bfloat16, False,
                                     False, 5)
     logits = torch.randn((1, 19, 8, 16)).bfloat16()
@@ -545,5 +546,5 @@ def test_wrappers_take_the_twins_on_cpu():
     assert torch.equal(upsample_argmax(logits, (32, 64)),
                        upsample_argmax_plain(logits, (32, 64)))
     assert (conv_chw.launches, upsample_argmax.launches) == (n_conv, n_tail)
-    for entry in (ua._tail_entry, ua._sharded_entry, ua._flat_entry):
+    for entry in (ua._tail_entry, ua._shard_tables, ua._flat_entry):
         assert hasattr(entry, "cache_info")
