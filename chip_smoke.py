@@ -75,7 +75,15 @@ Phases, each a hard failure (non-zero exit) when it fails:
    largest value), the decoder kernels' other forms at odd sizes, and
    conv_chw k = 1's and resize_chw's forms of pw_resize_probe.forms (the
    scalar and 16-byte paths, acc, vec_acc, 1-3 chain stages, 700
-   channels, a row window; bf16 and f32) bit for bit.
+   channels, a row window; bf16 and f32) bit for bit. Then the template
+   family: every call of template0's decoder (weights of TEMPLATE_SEED)
+   on the b8 1024x2048 taps against its twin (conv_chw k = 1 and
+   resize_chw bit for bit, sep_conv_chw at _compare), and the template
+   forms (TEMPLATE_FORMS: each of the 11 ops in a block under both
+   aggregations, with conv_chw's standalone k = 3 dense forms at
+   dilations 1, 3 and 12 and a pw_multi_chw head) on 2x256x512 frames,
+   bf16 and f32: every call against its twin, the masks by the slice
+   rule at MASK_FLOOR["template0"], the f32 logits at 1e-4.
 6. slice: Segmenter for arch0, 19 classes, seeded weights with BatchNorm
    perturbed. predict_batch on 8 seeded 1024x2048 frames (the main
    path, launch counts reset just before and read just after, each
@@ -93,10 +101,17 @@ Phases, each a hard failure (non-zero exit) when it fails:
    predict_stream gives predict's masks in order; logits are finite.
    Then G2's path, predict_batch on 8 frames of 512x512 (G2_LAUNCHES,
    masks >= 99.9 % equal, every pixel that differs a near-tie): the launches of pair_op_chw, pw_multi_chw and
-   upsample_argmax_flat are read there.
+   upsample_argmax_flat are read there. Then template0's path (the WACV
+   template family): predict_batch on the 8 1024x2048 frames, counts
+   reset and read around it (TEMPLATE_LAUNCHES), masks against its
+   use_kernels=False run at MASK_FLOOR["template0"] with every mismatch
+   a near-tie, and f32 masks on a small frame >= 99.9 % equal to the
+   CPU run's.
 7. timing with CUDA events: each kernel, its plain version and one
    PyTorch library call computing the same function where there is
-   one, and predict_batch at b8 from a device-resident batch. The
+   one, and predict_batch at b8 from a device-resident batch (arch0's
+   and template0's, printed with the card's name and power limit;
+   template0's space call in phase 8). The
    encoder serves every block on the CUDA-core kernel (the slice masks
    fall under MASK_FLOOR with any block shape on the tensor cores): the
    engine is also run with the blocks of one shape at a time on the
@@ -127,6 +142,14 @@ Phases, each a hard failure (non-zero exit) when it fails:
    b8 batch: masks bit-equal, DATA_LAUNCHES. Times with CUDA events: the
    sharded tail per shard and summed (beside a quarter of the unsharded
    tail), one space call and one data call beside the unsharded call.
+   template0 (its decoder runs whole on the gathered taps, as the JAX
+   package runs the template family sharded): the space call at n = 4
+   on the b8 frames (TEMPLATE_SPACE_LAUNCHES) and at 2x512x1024 with n =
+   2 and 4, and mode="data" (TEMPLATE_DATA_LAUNCHES): masks bit-equal to
+   the unsharded engine's (both take the H-first tail at these widths),
+   every decoder call of the space call against its twin and its logit
+   rows the unsharded decoder's bit for bit; its space and data calls
+   timed.
 
 9. experiments: the four ported TPU experiments (segtpu_torch.scripts:
    exp_vpu_floor, exp_front_kernel, ab_normalize, exp_tail_flat), each
@@ -141,26 +164,30 @@ Phases, each a hard failure (non-zero exit) when it fails:
    256x512 features, bit-identical; each timed with its twin and, for
    the tap loop and the tail, a PyTorch library yardstick.
 
-Prints the kernels JSON line and the card's name and power limit, then,
-last, {"ok": true, "device": {...}}. Writes chiprun_out/chip_smoke.json.
+Prints the kernels JSON line (each row also with its launches on
+template0's path) and the card's name and power limit, then, last,
+{"ok": true, "device": {...}}. Writes chiprun_out/chip_smoke.json.
 
---control BITS runs a control instead of the phases: the bf16
-tensor-core node, 1x1 and inverted-residual kernels' outputs (cell.cu's
-node_tc_kernel, pointwise.cu's pw_tc_kernel, inv_res.cu's
-inv_res_tc_kernel), and conv_chw's k = 1 and k = 2 (the stem),
-resize_chw's and the served inverted residual's (inv_res.cu's
-inv_res_kernel) outputs (bf16 and f32), rounded once more, to BITS
-significant bits, and the input of the tail kernels' launches (H-first,
-H-sharded, W-first) likewise, and the checks
-that hold those kernels at a tolerance (phase 4's 17 tensor-core block
-stages, phase 5's calls, encoder taps and f32 reference, phase 6's arch0
-and G2 masks, phase 8's shard logits) or bit for bit (conv_chw k = 1 and
-resize_chw at every launch of phase 5's main, G2 and f32 paths, the
-forms, and phase 8's sharded decoder; the stem and the 17 served blocks
-at phase 4's b8 and f32 launches, their forms and windows, phase 8's four
-shard stems; the tail's phase 3 cases and forms, window_flat_forms,
-G2's flat tail in bf16 and f32 on G2's logits made before the rounding,
-and phase 8's unsharded rows) run on it.
+--control BITS runs a control instead of the phases: the outputs of the
+node, 1x1 and inverted-residual kernels (cell.cu's node_tc_kernel and
+node_kernel, pointwise.cu's pw_tc_kernel and pointwise_kernel,
+inv_res.cu's inv_res_tc_kernel and inv_res_kernel), of conv_chw's dense
+forms (k = 1, the stem's k = 2, k = 3 and 5) and of resize_chw, bf16 and
+f32, rounded once more, to BITS significant bits, and the input of the
+tail kernels' launches (H-first, H-sharded, W-first) likewise, and the
+checks that hold those kernels at a tolerance (phase 4's 17 tensor-core
+block stages, phase 5's calls, encoder taps and f32 reference, phase 6's
+arch0, G2 and template0 masks, phase 8's shard logits, the template
+forms' masks and f32 logits) or bit for bit (conv_chw k = 1 and
+resize_chw at every launch of phase 5's main, G2, template0 and f32
+paths, the forms, phase 8's sharded decoders of arch0 and template0 and
+the template forms; the stem and the 17 served blocks at phase 4's b8
+and f32 launches, their forms and windows, phase 8's four shard stems;
+the tail's phase 3 cases and forms, window_flat_forms, G2's flat tail in
+bf16 and f32 on G2's logits made before the rounding, and phase 8's
+unsharded rows) run on it. The checks that hold kernels against kernels
+(sharded or data mode against the unsharded engine) and the card
+against the CPU are not in it: the rounding moves both sides alike.
 It prints how many fail and exits 0 when every one of them fails.
 """
 
@@ -747,6 +774,20 @@ DECODER_KERNELS = ("conv_chw", "pw_chain_chw", "pw_multi_chw",
 G2 = [[2, [0, 1, 5, 3], [2, 1, 4, 0], [3, 2, 8, 9]], [[3, 2], [2, 4], [1, 0]]]
 H2 = W2 = 512
 G2_ONLY = ("pw_multi_chw", "pair_op_chw", "upsample_argmax_flat")
+# The template (WACV'20) family: template0 (models/arch_literals.py) is the
+# third path. TEMPLATE_FORMS put each of the 11 ops in a block, under both
+# aggregations, between them: form 0's first block adds a resized branch
+# to one at the block's size (a plain add), form 2's adds one inside the
+# resize kernel (acc), form 1 collects two entries (pw_multi_chw); they run
+# on 2 frames of TEMPLATE_FORMS_HW. The template models take the weight
+# seed TEMPLATE_SEED: with random weights most seeds give masks of nearly
+# one class, where a mask check (and the control) has little to see; this
+# one's masks hold several.
+TEMPLATE_FORMS = [[[3, 2, 0, 0], [4, 1, 1, 1], [5, 0, 0, 2], [6, 2, 1, 3]],
+                  [[3, 2, 1, 4], [4, 1, 0, 5], [4, 0, 1, 6], [6, 3, 0, 7]],
+                  [[2, 3, 0, 8], [1, 4, 1, 9], [0, 5, 0, 10], [6, 2, 1, 0]]]
+TEMPLATE_FORMS_HW = (256, 512)
+TEMPLATE_SEED = 2
 
 
 def record_decoder(torch, dec, taps):
@@ -955,13 +996,14 @@ def _lib_compare(torch, got, ref, what, tol):
     return err
 
 
-def decoder_calls(torch, genotype, hw, dtype, batch):
+def decoder_calls(torch, genotype, hw, dtype, batch, seed: int = 0):
     """(model, folded decoder, frames, taps, logits, recorded decoder
-    calls) for seeded frames through the kernels."""
+    calls) for seeded frames through the kernels (``seed``: the model's
+    weights)."""
     from segtpu_torch.kernels.front import normalize_s2d_front
     from segtpu_torch.models.fast_decoder import fold_decoder
     from segtpu_torch.models.fast_encoder import fold_encoder
-    model = make_model(torch, genotype)
+    model = make_model(torch, genotype, seed)
     enc = fold_encoder(model.encoder, dtype).to("cuda")
     dec = fold_decoder(model.decoder, dtype).to("cuda")
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -1037,6 +1079,7 @@ def phase_decoder(torch, res):
     phase_decoder_forms(torch)
     for what, fn in exact_forms(torch):
         _exact(torch, fn(True), fn(False), what)
+    phase_template_decoder(torch)
     return stage_ms
 
 
@@ -1288,10 +1331,10 @@ def decoder_f32(torch):
                              f"f32 call {i:2d} {name}", 1e-4)
 
 
-def make_model(torch, genotype=None):
+def make_model(torch, genotype=None, seed: int = 0):
     from segtpu_torch.core.layers import ConvBN
     from segtpu_torch.models import ARCHS, create_segmenter
-    gen = torch.Generator().manual_seed(0)
+    gen = torch.Generator().manual_seed(seed)
     model = create_segmenter(genotype or ARCHS["arch0"], K, generator=gen,
                              device="cpu")
     with torch.no_grad():     # BatchNorm that is not the identity
@@ -1311,7 +1354,7 @@ NEAR_TIE = 2e-2
 # plain twins': G2 as every mask check before the tensor-core decoder;
 # arch0 just under its measured 99.66-99.74 % (H100): its 3x3 dense
 # branches and dilated sep convs chain more roundings per pixel
-MASK_FLOOR = {"G2": 0.999, "arch0": 0.996}
+MASK_FLOOR = {"G2": 0.999, "arch0": 0.996, "template0": 0.999}
 
 
 def tie_gaps(torch, ref, x):
@@ -1388,6 +1431,27 @@ SPACE_LAUNCHES = {"front": 4, "conv_chw": 16, "inv_res_chw": 52,
                   "upsample_argmax_flat": 0, "upsample_argmax_sharded": 4,
                   **EXPERIMENT_ONLY, **TC_ONLY}
 DATA_LAUNCHES = {n: N_SHARDS * v for n, v in PATH_LAUNCHES.items()}
+# one b8 1024x2048 predict_batch of template0: the stem and ten 1x1s (4
+# adapts, b1 and b2 of the two psum blocks, the cat block's reduce, the
+# classifier), the three resizes of a branch below its block's size (a
+# branch at the block's size is added in PyTorch), block 0's sep_conv_3x3;
+# block 1's pool op and block 2's skip launch no kernel
+TEMPLATE_LAUNCHES = {"front": 1, "conv_chw": 11, "inv_res_chw": 13,
+                     "inv_res_s2_chw": 4, "pw_chain_chw": 0,
+                     "pw_multi_chw": 0, "sep_conv_chw": 1, "pair_op_chw": 0,
+                     "cell_op_chw": 0, "resize_chw": 3, "upsample_argmax": 1,
+                     "upsample_argmax_flat": 0, "upsample_argmax_sharded": 0,
+                     **EXPERIMENT_ONLY, **TC_ONLY}
+# its space call over N_SHARDS logical shards of one card: the front and
+# the stem per shard, the decoder once (one device) on the gathered taps,
+# the sharded tail per shard
+TEMPLATE_SPACE_LAUNCHES = dict(TEMPLATE_LAUNCHES, front=N_SHARDS,
+                               conv_chw=N_SHARDS + 10,
+                               inv_res_chw=N_SHARDS * 13,
+                               inv_res_s2_chw=N_SHARDS * 4, upsample_argmax=0,
+                               upsample_argmax_sharded=N_SHARDS)
+TEMPLATE_DATA_LAUNCHES = {n: N_SHARDS * v
+                          for n, v in TEMPLATE_LAUNCHES.items()}
 # arch0 without its pool branch: halos of 12 rows and no re-associated sum
 NO_POOL = [[2, [0, 1, 3, 9], [2, 0, 5, 2], [1, 3, 8, 0]],
            [[3, 2], [4, 1], [5, 0]]]
@@ -1526,6 +1590,215 @@ def phase_slice(torch):
         "predict_stream differs from predict")
     print("[slice] predict_stream: 3 frames in order")
     return seg, ref, frames, launches, rate, masks, gaps
+
+
+def template_call_checks(torch, genotype, hw, dtype, batch, what):
+    """[(what, kernel name, check())]: every kernel call of the folded
+    template decoder (weights of TEMPLATE_SEED) on the kernels' taps of
+    ``batch`` seeded frames, held against its plain twin by
+    ``check_call``: conv_chw k = 1 and resize_chw bit for bit, the rest at
+    ``_compare``."""
+    *_, calls = decoder_calls(torch, genotype, hw, dtype, batch,
+                              TEMPLATE_SEED)
+    out = []
+    for i, (name, fn, a) in enumerate(calls):
+        w = f"{what} call {i:2d} {name}"
+        out.append((w, name, lambda name=name, fn=fn, a=a, w=w: check_call(
+            torch, name, fn, a, w)))
+    return out
+
+
+def template_forms(torch):
+    """[(what, check())]: each of TEMPLATE_FORMS on 2 seeded frames of
+    TEMPLATE_FORMS_HW, bf16 and f32: every decoder call against its twin
+    (``template_call_checks``), the engine's masks against its
+    use_kernels=False run by the slice rule at MASK_FLOOR["template0"],
+    and in f32 the decoder's logits against the twins' on the same taps
+    at 1e-4 (``_compare``). This reaches conv_chw's k = 3 dense forms
+    (dilations 1, 3, 12) that no other served path calls outside a cell,
+    and pw_multi_chw as a template head."""
+    from segtpu_torch.engine import Segmenter
+    from segtpu_torch.kernels.front import normalize_s2d_front
+    hw = TEMPLATE_FORMS_HW
+    frames = np.random.default_rng(14).integers(0, 256, (2, *hw, 3),
+                                                dtype=np.uint8)
+    out = []
+    for gi, genotype in enumerate(TEMPLATE_FORMS):
+        for dt in (torch.bfloat16, torch.float32):
+            tag = (f"template form {gi} {'bf16' if dt == torch.bfloat16 else 'f32'}"
+                   f" 2x{hw[0]}x{hw[1]}")
+            out += [(w, run) for w, _, run in template_call_checks(
+                torch, genotype, hw, dt, 2, tag)]
+
+            def engines(genotype=genotype, dt=dt):
+                model = make_model(torch, genotype, TEMPLATE_SEED)
+                return (Segmenter(model, device="cuda", compute_dtype=dt),
+                        Segmenter(model, device="cuda", compute_dtype=dt,
+                                  use_kernels=False))
+
+            def masks(engines=engines, what=f"{tag} masks"):
+                seg, ref = engines()
+                x = torch.from_numpy(frames).cuda()
+                got = seg.predict_batch(x)
+                print(f"[template] {what}: classes "
+                      f"{torch.bincount(got.flatten().long()).tolist()}")
+                masks_hold(torch, got, ref.predict_batch(x),
+                           tie_gaps(torch, ref, x), MASK_FLOOR["template0"],
+                           f"{what} vs use_kernels=False")
+            out.append((f"{tag} masks vs use_kernels=False", masks))
+            if dt == torch.float32:
+                def logits(engines=engines, what=f"{tag} logits"):
+                    seg, _ = engines()
+                    x = torch.from_numpy(frames).cuda()
+                    with torch.inference_mode():
+                        taps = seg.encoder(normalize_s2d_front(
+                            x, out_dtype=torch.float32))
+                        _compare(torch, seg.decoder(taps),
+                                 seg.decoder(taps, use_kernels=False),
+                                 f"{what} vs the twins'")
+                out.append((f"{tag} logits vs the twins'", logits))
+    return out
+
+
+def phase_template_decoder(torch):
+    """Phase 5's template part: every call of template0's decoder on the
+    b8 1024x2048 path held against its twin (``template_call_checks``;
+    the calls counted against TEMPLATE_LAUNCHES less the stem), then
+    ``template_forms``."""
+    from segtpu_torch.models import TEMPLATE_ARCHS
+    checks = template_call_checks(torch, TEMPLATE_ARCHS["template0"], (H, W),
+                                  torch.bfloat16, N, "template0 main")
+    seen = {name: 0 for name in DECODER_KERNELS}
+    with torch.inference_mode():
+        for _, name, run in checks:
+            run()
+            seen[name] += 1
+    want = {name: TEMPLATE_LAUNCHES[name] - (name == "conv_chw")
+            for name in DECODER_KERNELS}
+    check(seen == want, f"template0 decoder calls {seen}, expected {want}")
+    print(f"[decoder] template0 {N}x{H}x{W}: calls against their twins {seen}")
+    del checks
+    forms = template_forms(torch)
+    for _, run in forms:
+        run()
+    print(f"[decoder] template forms: {len(forms)} checks")
+
+
+def template_slice(torch, frames):
+    """Phase 6's template path: template0 (weights of TEMPLATE_SEED) on the
+    slice phase's b8 1024x2048 frames, predict_batch with the counts reset
+    just before and read just after (TEMPLATE_LAUNCHES), its masks against
+    the same engine with use_kernels=False by the slice rule at
+    MASK_FLOOR["template0"]; then f32 masks on a small frame against the
+    CPU run, >= 99.9 %. Returns (engine, masks, launches, agreement)."""
+    from segtpu_torch.engine import Segmenter
+    from segtpu_torch.models import TEMPLATE_ARCHS
+    model = make_model(torch, TEMPLATE_ARCHS["template0"], TEMPLATE_SEED)
+    seg = Segmenter(model, device="cuda")
+    ref = Segmenter(model, device="cuda", use_kernels=False)
+    reset_counts()
+    masks = seg.predict_batch(frames)
+    launches = read_counts()
+    print(f"[slice] template0 predict_batch b8 {H}x{W}: launches={launches}")
+    check(all(launches[n] > 0 for n, v in TEMPLATE_LAUNCHES.items() if v),
+          f"a kernel of the template path was not launched: {launches}")
+    check(launches == TEMPLATE_LAUNCHES,
+          f"template-path launches {launches}, expected {TEMPLATE_LAUNCHES}")
+    check(masks.shape == (N, H, W) and masks.dtype == np.uint8
+          and int(masks.max()) < K, f"template0 masks {masks.shape} "
+          f"{masks.dtype}")
+    print(f"[slice] template0 b8 classes="
+          f"{np.bincount(masks.ravel(), minlength=K).tolist()}")
+    x = torch.from_numpy(frames).cuda()
+    rate = masks_hold(torch, masks, ref.predict_batch(frames),
+                      tie_gaps(torch, ref, x), MASK_FLOOR["template0"],
+                      "template0 b8 masks vs use_kernels=False")
+    del ref
+    small = np.random.default_rng(15).integers(0, 256, (2, 64, 128, 3),
+                                               dtype=np.uint8)
+    on_gpu = Segmenter(model, device="cuda",
+                       compute_dtype=torch.float32).predict(small)
+    on_cpu = Segmenter(model, device="cpu",
+                       compute_dtype=torch.float32).predict(small)
+    rate_cpu = float((on_gpu == on_cpu).mean())
+    print(f"[slice] template0 f32 2x64x128 card vs CPU: agreement={rate_cpu!r}")
+    check(rate_cpu >= 0.999, f"template0 card vs CPU agreement {rate_cpu} "
+          f"< 99.9 %")
+    return seg, masks, launches, rate
+
+
+def template_sharded(torch, seg, frames, masks, t):
+    """Phase 8's template path: template0's space call, n = N_SHARDS, on
+    the b8 1024x2048 frames (counts reset just before, read just after:
+    TEMPLATE_SPACE_LAUNCHES), masks bit-equal to the unsharded engine's
+    (the decoder runs whole on the gathered taps, which are bit-equal, and
+    both engines take the H-first tail); every decoder call of that call
+    against its twin, and its logit rows the unsharded decoder's bit for
+    bit; 2x512x1024 at n = 2 and 4, bit-equal; mode="data" on 4 parts of
+    the batch (TEMPLATE_DATA_LAUNCHES), bit-equal. Times the space and the
+    data call into ``t``; returns the space call's launches."""
+    from segtpu_torch.engine import ShardedSegmenter
+    from segtpu_torch.kernels.front import normalize_s2d_front
+    from segtpu_torch.parallel import make_mesh, make_sharded_infer_fn
+    n = N_SHARDS
+    devices = [torch.device("cuda", 0)] * n
+    x = torch.from_numpy(frames).cuda()
+    space = make_sharded_infer_fn(seg, make_mesh(1, n, devices=devices),
+                                  mode="space")
+    reset_counts()
+    got = space(x)
+    launches = read_counts()
+    torch.cuda.synchronize()
+    print(f"[sharded] template0 space n={n} b8 {H}x{W}: launches={launches}")
+    check(launches == TEMPLATE_SPACE_LAUNCHES, f"template0 space launches "
+          f"{launches}, expected {TEMPLATE_SPACE_LAUNCHES}")
+    check(np.array_equal(got.cpu().numpy(), masks),
+          "template0 space masks differ from the unsharded engine's")
+    print("[sharded] template0 space masks: bit-equal")
+    sh = ShardedSegmenter(seg, devices)
+    rows, calls = record_decoder(torch, sh.decoder,
+                                 sh.infer_shards(x, return_taps=True))
+    seen = {name: 0 for name in DECODER_KERNELS}
+    with torch.inference_mode():
+        for i, (name, fn, a) in enumerate(calls):
+            check_call(torch, name, fn, a, f"template0 space call {i:2d} {name}")
+            seen[name] += 1
+        want = seg.decoder(seg.encoder(normalize_s2d_front(x)))
+    check(seen == {name: TEMPLATE_SPACE_LAUNCHES[name] - n * (name == "conv_chw")
+                   for name in DECODER_KERNELS},
+          f"template0 sharded decoder calls {seen}")
+    check(torch.equal(torch.cat(rows, dim=2), want),
+          "template0 sharded logit rows differ from the unsharded decoder's")
+    print(f"[sharded] template0 decoder calls against their twins {seen}; "
+          f"logit rows bit-equal")
+    del rows, calls, want
+    small = np.random.default_rng(8).integers(0, 256, (2, 512, 1024, 3),
+                                              dtype=np.uint8)
+    want_s = seg.predict_batch(small)
+    for k in (2, 4):
+        same = bool(np.array_equal(
+            ShardedSegmenter(seg, devices[:1] * k).predict(small), want_s))
+        print(f"[sharded] template0 2x512x1024 n={k}: bit-equal={same}")
+        check(same, f"template0 space masks at n={k} differ from the "
+              f"unsharded engine's")
+    data = make_sharded_infer_fn(seg, make_mesh(n, 1, devices=devices),
+                                 mode="data")
+    reset_counts()
+    got_d = data(x)
+    data_launches = read_counts()
+    torch.cuda.synchronize()
+    check(data_launches == TEMPLATE_DATA_LAUNCHES, f"template0 data launches "
+          f"{data_launches}, expected {TEMPLATE_DATA_LAUNCHES}")
+    check(np.array_equal(got_d.cpu().numpy(), masks),
+          "template0 data-mode masks differ from the unsharded engine's")
+    print("[sharded] template0 data masks: bit-equal")
+    t["template0_space_b8"] = cuda_ms(lambda: space(x), 5)
+    t["template0_data_b8"] = cuda_ms(lambda: data(x), 5)
+    print(f"[timing] template0 {n} logical shards on one card: space "
+          f"{t['template0_space_b8']:.4f} ms, data "
+          f"{t['template0_data_b8']:.4f} ms, unsharded "
+          f"{t['template0_b8']:.4f} ms per b8 call on {gpu_line()}")
+    return launches
 
 
 def tensor_core_encoder(torch, seg, ref, frames, gaps):
@@ -2088,23 +2361,21 @@ def coarse_decoder(torch, bits: int):
     ``bits`` significant bits (bf16 keeps 8): up to 2^-bits of the value,
     on about half the elements at bits = 7, where the tensor-core kernels
     differ from their twins by one rounding on a few elements in a
-    thousand. The bf16 node, 1x1 and inverted-residual kernels
-    (``cell.cu``, ``pointwise.cu``, ``inv_res.cu``), conv_chw's k = 1 and
-    k = 2 (the stem's) dense kernels, resize_chw's kernel and the served
-    inverted residual (``inv_res.cu``'s ``inv_res_kernel``) in bf16 and
-    f32; and the tail kernel's input, a rounded copy of the logits, so
-    that its masks are those of other logits, and so of the H-sharded and
-    W-first tails' launches."""
+    thousand. The node, 1x1 and inverted-residual kernels (``cell.cu``,
+    ``pointwise.cu``, ``inv_res.cu``, the tensor-core and the CUDA-core
+    ones), conv_chw's dense kernels (k = 1, the stem's k = 2, and k = 3
+    and 5 at any dilation, which the template forms reach) and
+    resize_chw's kernel, in bf16 and f32; and the tail kernel's input, a
+    rounded copy of the logits, so that its masks are those of other
+    logits, and so of the H-sharded and W-first tails' launches."""
     import importlib
     from segtpu_torch.kernels import chw_ops
     rz = importlib.import_module("segtpu_torch.kernels.resize_chw")
     ua = importlib.import_module("segtpu_torch.kernels.upsample_argmax")
 
-    def coarsen(out, bf16_only=True):
-        if out.dtype == torch.bfloat16 or not bf16_only:
-            m, e = torch.frexp(out.float())
-            out.copy_(torch.ldexp(torch.round(m * 2.0 ** bits)
-                                  / 2.0 ** bits, e))
+    def coarsen(out):
+        m, e = torch.frexp(out.float())
+        out.copy_(torch.ldexp(torch.round(m * 2.0 ** bits) / 2.0 ** bits, e))
         return out
 
     def coarse(launch):
@@ -2116,25 +2387,18 @@ def coarse_decoder(torch, bits: int):
         def run(x, w, bias, acc, vec_acc, k, dilation, depthwise, act):
             out = launch(x, w, bias, acc, vec_acc, k, dilation, depthwise,
                          act)
-            exact = not depthwise and (k == 1 or (k == 2 and dilation == 1))
-            return coarsen(out, False) if exact else out
+            return out if depthwise else coarsen(out)
         return run
 
     def coarse_tail(launch):
         def run(logits, *args):
-            return launch(coarsen(logits.clone(), False), *args)
+            return launch(coarsen(logits.clone()), *args)
         return run
 
-    def coarse_resize(launch):
-        def run(*args, **kw):
-            return coarsen(launch(*args, **kw), False)
-        return run
-
-    patches = [(chw_ops, n, coarse) for n in
-               ("_node_launch", "_pw_launch", "_inv_res_tc_launch")]
+    patches = [(chw_ops, n, coarse) for n in (
+        "_node_launch", "_pw_launch", "_inv_res_tc_launch", "_inv_res_launch")]
     patches += [(chw_ops, "_conv_launch", coarse_conv),
-                (chw_ops, "_inv_res_launch", coarse_resize),
-                (rz, "_resize_launch", coarse_resize)]
+                (rz, "_resize_launch", coarse)]
     patches += [(ua, n, coarse_tail) for n in
                 ("_tail_launch", "_sharded_launch", "_flat_launch")]
     saved = [(mod, n, getattr(mod, n)) for mod, n, _ in patches]
@@ -2175,11 +2439,11 @@ def must_fail(what, fn) -> bool:
 
 
 def phase_control(torch, bits: int) -> dict:
-    """``--control BITS``: the checks that hold the bf16 tensor-core
-    kernels at a tolerance, and those that hold conv_chw's k = 1 and 2,
-    resize_chw, the tail and the served inverted residual bit for bit,
-    run with ``coarse_decoder(bits)``: each must fail. Returns {check:
-    failed}."""
+    """``--control BITS``: the checks that hold the tensor-core kernels
+    at a tolerance, those that hold conv_chw's k = 1 and 2, resize_chw,
+    the tail and the served inverted residual bit for bit, and the
+    template path's checks against the twins, run with
+    ``coarse_decoder(bits)``: each must fail. Returns {check: failed}."""
     from segtpu_torch.engine import Segmenter, ShardedSegmenter
     from segtpu_torch.models import ARCHS
     from segtpu_torch.kernels.front import normalize_s2d_front
@@ -2315,6 +2579,47 @@ def phase_control(torch, bits: int) -> dict:
                         res[f"{what} vs its twin"] = must_fail(
                             what, lambda: check_call(torch, name, fn, a, what))
             del calls, sh, ref_sh
+    res.update(template_control(torch, frames, bits))
+    return res
+
+
+def template_control(torch, frames, bits: int) -> dict:
+    """The control's template checks: template0's b8 decoder calls
+    against their twins, its masks on the b8 ``frames`` against its
+    use_kernels=False run, the decoder calls of its space call, and every
+    check of ``template_forms``, run inside ``coarse_decoder(bits)``. The
+    decoder calls are recorded before the rounding, as G2's logits are:
+    recorded under it, a resize of a map that is constant per channel
+    (a 1x1 of the pool op's broadcast) reads values rounded already, and
+    its output, rounded again, does not move. Returns {check: failed}."""
+    from segtpu_torch.engine import Segmenter, ShardedSegmenter
+    from segtpu_torch.models import TEMPLATE_ARCHS
+    t0, res = TEMPLATE_ARCHS["template0"], {}
+    main = [(f"{w} vs its twin", run) for w, _, run in template_call_checks(
+        torch, t0, (H, W), torch.bfloat16, N, "template0 main")]
+    forms = template_forms(torch)
+    model = make_model(torch, t0, TEMPLATE_SEED)
+    seg = Segmenter(model, device="cuda")
+    ref = Segmenter(model, device="cuda", use_kernels=False)
+    x = torch.from_numpy(frames).cuda()
+    gaps = tie_gaps(torch, ref, x)
+    sh = ShardedSegmenter(seg, [torch.device("cuda", 0)] * N_SHARDS)
+    _, calls = record_decoder(torch, sh.decoder,
+                              sh.infer_shards(x, return_taps=True))
+    space = [(f"template0 space call {i:2d} {name} vs its twin",
+              lambda name=name, fn=fn, a=a, i=i: check_call(
+                  torch, name, fn, a, f"template0 space call {i:2d} {name}"))
+             for i, (name, fn, a) in enumerate(calls)]
+    with coarse_decoder(torch, bits):
+        with torch.inference_mode():
+            for what, run in main + space:
+                res[what] = must_fail(what, run)
+        res["template0 b8 masks vs use_kernels=False"] = must_fail(
+            "template0 masks", lambda: masks_hold(
+                torch, seg.predict_batch(frames), ref.predict_batch(frames),
+                gaps, MASK_FLOOR["template0"], "control template0 b8 masks"))
+        for what, run in forms:
+            res[what] = must_fail(what, run)
     return res
 
 
@@ -2344,10 +2649,17 @@ def main() -> None:
     work, stage_ms = phase_encoder(torch, img)
     dec_ms = phase_decoder(torch, work)
     seg, ref, frames, launches, _, masks, gaps = phase_slice(torch)
+    seg_t, masks_t, t_launches, t_rate = template_slice(torch, frames)
     t = phase_timing(torch, img, logits, seg, ref, frames, gaps)
+    x = torch.from_numpy(frames).cuda()
+    t["template0_b8"] = cuda_ms(lambda: seg_t.predict_batch(x), 10)
+    print(f"[timing] template0 predict_batch b8 {H}x{W}: "
+          f"{t['template0_b8']:.4f} ms ({N * 1000.0 / t['template0_b8']:.1f} "
+          f"images/s device-resident) on {gpu_line()}")
     work["upsample_argmax_sharded"] = sharded_tail(torch, logits, t["tail"])
     space_launches, space_rate = phase_sharded(torch, seg, ref, frames, masks,
                                                gaps, t)
+    t_space_launches = template_sharded(torch, seg_t, frames, masks_t, t)
     launches.update({n: space_launches[n] for n in SHARDED_ONLY})
     exp_launches, exp_work, experiments = phase_experiments(torch)
     launches.update(exp_launches)
@@ -2385,6 +2697,7 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": f"segtpu_torch/csrc/{src}",
             "replaces": replaces, "launches": launches[name],
+            "template0_launches": t_launches[name],
             "path": "G2 b8 512x512" if name in G2_ONLY else
             f"space n={N_SHARDS} b8 1024x2048" if name in SHARDED_ONLY else
             f"segtpu_torch.scripts.{SCRIPT_OF[name]}" if name in SCRIPT_OF
@@ -2397,7 +2710,7 @@ def main() -> None:
                if "tc_ms" in r else {}),
             **({"graph_ms": r["graph_ms"]} if "graph_ms" in r else {})})
     if "--profile" in sys.argv[1:]:
-        profile(torch, seg, frames)
+        profile(torch, seg, seg_t, frames)
     gpu = gpu_line()
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -2408,6 +2721,9 @@ def main() -> None:
                        "space_mask_agreement": space_rate,
                        "tail_per_shard_ms":
                            work["upsample_argmax_sharded"]["per_shard_ms"]},
+                   "template0": {
+                       "launches": t_launches, "mask_agreement": t_rate,
+                       "space_launches": t_space_launches},
                    "experiments": experiments},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
@@ -2417,11 +2733,11 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def profile(torch, seg, frames):
+def profile(torch, seg, seg_t, frames):
     """Device time by kernel over two b8 calls of the unsharded engine,
-    of the same with every encoder block on the tensor cores, then of the
-    space-sharded one (N_SHARDS logical shards), each beside the calls'
-    time on the host's clock."""
+    of the same with every encoder block on the tensor cores, of the
+    space-sharded one (N_SHARDS logical shards), then of the template0
+    engine ``seg_t``, each beside the calls' time on the host's clock."""
     from torch.profiler import ProfilerActivity, profile as prof
     from segtpu_torch.engine import ShardedSegmenter
     x = torch.from_numpy(frames).cuda()
@@ -2432,6 +2748,8 @@ def profile(torch, seg, frames):
             ("unsharded, tensor-core encoder", seg.predict_batch,
              on_tensor_cores(seg.encoder)),
             (f"space n={N_SHARDS}", sharded.predict,
+             contextlib.nullcontext()),
+            ("template0 unsharded", seg_t.predict_batch,
              contextlib.nullcontext())):
         with ctx:
             fn(x)

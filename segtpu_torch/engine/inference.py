@@ -6,12 +6,14 @@ For even H and W the path is
     front kernel (normalize + space-to-depth, zero-padded to the stride
     multiple) -> folded encoder (stem conv_chw, 13 inv_res_chw and 4
     inv_res_s2_chw kernels, BatchNorm folded) -> folded decoder
-    (pw_chain_chw, resize_chw, sep_conv_chw, cell_op_chw and the
-    classifier's conv_chw or pw_multi_chw) -> tail kernel (upsample +
-    argmax, cropped to H x W)
+    (micro: pw_chain_chw, resize_chw, sep_conv_chw, cell_op_chw and the
+    classifier's conv_chw or pw_multi_chw; template: conv_chw k = 1,
+    resize_chw, the block ops' kernels and the same classifier) -> tail
+    kernel (upsample + argmax, cropped to H x W)
 
 as the JAX engine's Pallas branch runs ``mbv2_chw_apply`` and
-``build_fast_decoder``. For odd H or W (the front kernel takes even
+``build_fast_decoder`` or ``build_fast_template_decoder``, by the
+genotype's family. For odd H or W (the front kernel takes even
 sizes) the image is normalized on the device, zero-padded to the stride
 multiple, which is even, and packed by space-to-depth into the same
 folded encoder: the JAX engine runs such frames through the unfolded
@@ -45,7 +47,9 @@ from segtpu_torch.kernels.upsample_argmax import (flat_tail_profitable,
                                                   upsample_argmax_flat,
                                                   upsample_argmax_sharded)
 from segtpu_torch.models.fast_decoder import (FoldedMicroDecoder,
+                                              FoldedTemplateDecoder,
                                               ShardedMicroDecoder,
+                                              ShardedTemplateDecoder,
                                               fold_decoder)
 from segtpu_torch.models.fast_encoder import fold_encoder, mbv2_chw_sharded
 from segtpu_torch.parallel.collectives import halo_exchange, per_device
@@ -236,28 +240,37 @@ class ShardedSegmenter:
 
     Shard s of n runs, on ``devices[s]``: the front kernel on its H/n
     rows, the folded encoder with an overlap-discard halo exchange
-    around every stage (``mbv2_chw_sharded``), the H-sharded micro
-    decoder (``ShardedMicroDecoder``) and ``upsample_argmax_sharded`` on
-    its logit rows and one halo row of each neighbour, and returns its
-    H/n rows of the mask. The batch is not split. ``devices`` may name
-    one device several times (logical shards of one card, which then run
-    one after another); the folded weights are copied once per distinct
-    device. Without a global-average-pool op in the genotype the logits
-    are the unsharded engine's bit for bit, and so are the masks wherever
-    that engine takes the H-first tail (a decoder 128 wide takes the
-    W-first one, whose roundings differ); a pool branch's mean is summed
-    per shard, which moves near-ties.
+    around every stage (``mbv2_chw_sharded``), the decoder, and
+    ``upsample_argmax_sharded`` on its logit rows and one halo row of
+    each neighbour, and returns its H/n rows of the mask. The batch is
+    not split. ``devices`` may name one device several times (logical
+    shards of one card, which then run one after another); the folded
+    weights are copied once per distinct device.
 
-    Frames are stride-32 multiples with H % (2 n) == 0. The template
-    family is not ported yet and raises ``NotImplementedError``.
+    A micro decoder runs H-sharded (``ShardedMicroDecoder``). Without a
+    global-average-pool op in the genotype its logits are the unsharded
+    engine's bit for bit; a pool branch's mean is summed per shard,
+    which moves near-ties. A template decoder runs as the JAX package
+    runs it (``ShardedTemplateDecoder``): on the gathered taps, whole,
+    once per device, each shard keeping its rows of the logits, which
+    are the unsharded engine's bit for bit. The masks are the unsharded
+    engine's wherever the logits are and that engine takes the H-first
+    tail (a decoder 128 wide takes the W-first one, whose roundings
+    differ).
+
+    Frames are stride-32 multiples with H % (2 n) == 0. A decoder of
+    neither family raises ``TypeError``.
     """
 
     def __init__(self, seg: Segmenter, devices: Sequence):
-        if not isinstance(seg.decoder, FoldedMicroDecoder):
-            raise NotImplementedError(
-                "sharded serving of the template (WACV'20) decoder family "
-                "(gathered taps, replicated decoder) is not ported to "
-                "segtpu_torch yet (ROADMAP.md Queue A)")
+        if isinstance(seg.decoder, FoldedMicroDecoder):
+            sharded = ShardedMicroDecoder
+        elif isinstance(seg.decoder, FoldedTemplateDecoder):
+            sharded = ShardedTemplateDecoder
+        else:
+            raise TypeError(f"sharded serving takes a folded micro or "
+                            f"template decoder, not "
+                            f"{type(seg.decoder).__name__}")
         self.devices = [resolve_device(d) for d in devices]
         if not self.devices:
             raise ValueError("sharded inference needs at least one device")
@@ -265,7 +278,7 @@ class ShardedSegmenter:
         self.seg = seg
         reps = per_device(self.devices, seg.replica)
         self.encoders = [r.encoder for r in reps]
-        self.decoder = ShardedMicroDecoder(
+        self.decoder = sharded(
             [r.decoder for r in reps], align_corners=seg.align_corners,
             use_kernels=seg.use_kernels)
 

@@ -1,7 +1,9 @@
 """Decoder-family dispatch (counterpart: segtpu/models/families.py).
 
-Only the micro (CVPR'19) family is built in the port so far; the
-template (WACV'20) family is classified but not yet ported.
+A family bundles the genotype check and the decoder module: the micro
+(CVPR'19) ``MicroDecoder`` and the template (WACV'20)
+``TemplateDecoder``, built with the same arguments, so the segmenter
+and the engine take either.
 """
 
 from __future__ import annotations
@@ -9,6 +11,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 from segtpu_torch.models import micro_decoders as micro
+from segtpu_torch.models import template_decoders as template
 
 
 class DecoderFamily(NamedTuple):
@@ -17,17 +20,9 @@ class DecoderFamily(NamedTuple):
     build: Callable
 
 
-def _template_not_ported(*_args, **_kw):
-    raise NotImplementedError(
-        "the template (WACV'20) decoder family is not ported to "
-        "segtpu_torch yet; it comes with the template-family slice, after "
-        "the encoder (slice 2) and decoder (slice 3) kernel slices "
-        "(ROADMAP.md Queue A)")
-
-
 MICRO = DecoderFamily("micro", micro.validate_genotype, micro.MicroDecoder)
-TEMPLATE = DecoderFamily("template", _template_not_ported,
-                         _template_not_ported)
+TEMPLATE = DecoderFamily("template", template.validate_template_genotype,
+                         template.TemplateDecoder)
 
 FAMILIES = {"micro": MICRO, "cvpr": MICRO,
             "template": TEMPLATE, "wacv": TEMPLATE}

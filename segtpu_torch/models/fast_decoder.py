@@ -1,12 +1,14 @@
-"""The micro decoder with BatchNorm folded, every op a fused kernel
-(counterpart: segtpu/models/fast_decoder.py::build_fast_decoder, the
-single-device path).
+"""The micro and template decoders with BatchNorm folded, every op a
+fused kernel (counterpart: segtpu/models/fast_decoder.py::
+build_fast_decoder, the single-device path, and
+build_fast_template_decoder).
 
 ``fold_decoder(dec, compute_dtype)`` folds eval BatchNorm into the conv
-weights of a ``MicroDecoder`` from its f32 weights and returns a
-``FoldedMicroDecoder`` whose forward takes the four NCHW encoder taps
-and returns the logits [N, K, H/4, W/4], with the JAX fast decoder's
-structure:
+weights of a ``MicroDecoder`` or a ``TemplateDecoder`` from its f32
+weights and returns a ``FoldedMicroDecoder`` or a
+``FoldedTemplateDecoder``, whose forward takes the four NCHW encoder
+taps and returns the logits [N, K, H/4, W/4]. The micro decoder has the
+JAX fast decoder's structure:
 
 * a tap used by one aggregate branch only keeps its 1x1 adapt pending
   and runs it with that branch's 1x1 as one ``pw_chain_chw`` (or inside
@@ -19,6 +21,15 @@ structure:
   ``vec_acc``), and the rest as one ``cell_op_chw``;
 * the head is ``conv_chw`` (k=1) or, over several collected entries,
   ``pw_multi_chw`` without their concatenation.
+
+The template decoder keeps ``build_fast_template_decoder``'s steps,
+whose bf16 roundings its bits depend on: every adapt and aggregation
+1x1 is its own ``conv_chw`` (k=1); psum is
+``resize(pw(x2, b2), acc=resize(pw(x1, b1)))``, where a branch already
+at the block's size is not resized and its add is a plain one; cat
+resizes both inputs, concatenates them and runs the reduce 1x1; the
+block op and the head are the micro decoder's (``FoldedOp``,
+``_FoldedHead``).
 
 Dense weights are rounded to the compute dtype after folding in f32;
 depthwise weights, the pool's 1x1 and all biases stay f32.
@@ -39,7 +50,8 @@ from segtpu_torch.kernels.resize_chw import resize_chw, shard_interp_bands
 from segtpu_torch.models.fast_encoder import _fold, crop_h
 from segtpu_torch.models.micro_decoders import (MicroDecoder,
                                                 _cell_collect_inds)
-from segtpu_torch.ops.layer_factory import _CONV_SPECS, OP_NAMES
+from segtpu_torch.models.template_decoders import TemplateDecoder
+from segtpu_torch.ops.layer_factory import AGG_OP_NAMES, _CONV_SPECS, OP_NAMES
 from segtpu_torch.parallel.collectives import (gather_h, halo_exchange,
                                                per_device, sum_shards)
 
@@ -201,7 +213,48 @@ def _node_pair(opa, xa, opb, xb, uk: bool):
     return opb(xb, acc=opa(xa, use_kernels=uk), use_kernels=uk)
 
 
-class FoldedMicroDecoder(nn.Module):
+def _resize(x, hw, ac: bool, uk: bool, acc=None, acc_chain=None):
+    """x resized to hw (+ acc, or + the 1x1 chain of ``acc_chain`` =
+    (raw, stages, the stages' packed weights)); x already at hw is not
+    resized, and its add is a plain one."""
+    if tuple(x.shape[2:]) == hw:
+        if acc_chain is not None:
+            raw, stages, packed = acc_chain
+            acc = pw_chain_chw(raw, stages, packed=packed, use_kernels=uk)
+        return x if acc is None else x + acc
+    return resize_chw(x, hw, acc, None if acc_chain is None
+                      else acc_chain[:2], align_corners=ac, use_kernels=uk)
+
+
+class _FoldedHead(nn.Module):
+    """The classifier of a folded decoder: the 1x1 weight in the compute
+    dtype (``clf_w``, packed for the bf16 kernels as ``clf_wp``) and its
+    f32 bias (``clf_b``)."""
+
+    def _register_head(self, clf, compute_dtype):
+        if clf.w.dtype != torch.float32:
+            raise ValueError("fold_decoder folds f32 weights: fold before "
+                             "casting")
+        self.register_buffer("clf_w", clf.w.detach().to(compute_dtype))
+        self.register_buffer("clf_wp", _tc_packed(clf.w.detach(),
+                                                  compute_dtype))
+        self.register_buffer("clf_b", clf.b.detach().float())
+
+    def _head(self, srcs, uk: bool):
+        """The classifier over the collected entries, without their
+        concatenation."""
+        if len(srcs) == 1:
+            return conv_chw(srcs[0], self.clf_w, self.clf_b, k=1, act="none",
+                            use_kernels=uk)
+        ws, off = [], 0
+        for s in srcs:
+            ws.append(self.clf_w[:, off:off + s.shape[1]])
+            off += s.shape[1]
+        return pw_multi_chw(srcs, ws, self.clf_b, act="none",
+                            packed=self.clf_wp, use_kernels=uk)
+
+
+class FoldedMicroDecoder(_FoldedHead):
     """Four NCHW encoder taps -> logits [N, K, H/4, W/4]."""
 
     def __init__(self, dec: MicroDecoder, compute_dtype):
@@ -221,13 +274,7 @@ class FoldedMicroDecoder(nn.Module):
                                          FoldedOp(nd["b"], compute_dtype)])
                           for nd in blk["cell"].nodes)
             for blk in dec.blocks)
-        if dec.clf.w.dtype != torch.float32:
-            raise ValueError("fold_decoder folds f32 weights: fold before "
-                             "casting")
-        self.register_buffer("clf_w", dec.clf.w.detach().to(compute_dtype))
-        self.register_buffer("clf_wp", _tc_packed(dec.clf.w.detach(),
-                                                  compute_dtype))
-        self.register_buffer("clf_b", dec.clf.b.detach().float())
+        self._register_head(dec.clf, compute_dtype)
         self.collect = list(dec.collect)
         self.cell_collect = _cell_collect_inds(cell_config)
         n_taps = len(dec.adapt)
@@ -282,18 +329,6 @@ class FoldedMicroDecoder(nn.Module):
         return cell_op_chw(outs, nodes_desc, self.cell_collect,
                            use_kernels=uk)
 
-    @staticmethod
-    def _resize(x, hw, ac: bool, uk: bool, acc=None, acc_chain=None):
-        """x resized to hw (+ acc, or + the 1x1 chain of ``acc_chain`` =
-        (raw, stages, the stages' packed weights))."""
-        if tuple(x.shape[2:]) == hw:
-            if acc_chain is not None:
-                raw, stages, packed = acc_chain
-                acc = pw_chain_chw(raw, stages, packed=packed, use_kernels=uk)
-            return x if acc is None else x + acc
-        return resize_chw(x, hw, acc, None if acc_chain is None
-                          else acc_chain[:2], align_corners=ac, use_kernels=uk)
-
     def forward(self, taps, *, align_corners: bool = True,
                 use_kernels: bool = True):
         uk, ac = use_kernels, align_corners
@@ -316,30 +351,17 @@ class FoldedMicroDecoder(nn.Module):
                 shp.reverse()
             (e1, m1), (e2, m2) = br
             if isinstance(e1, _LazyTap) and shp[0][2:] == hw:
-                y = self._resize(agg_pw(e2, m2), hw, ac, uk,
-                                 acc_chain=(e1.x, [e1.adapt, m1.wb()],
-                                            [e1.packed, m1.wp]))
+                y = _resize(agg_pw(e2, m2), hw, ac, uk,
+                            acc_chain=(e1.x, [e1.adapt, m1.wb()],
+                                       [e1.packed, m1.wp]))
             else:
-                y = self._resize(agg_pw(e2, m2), hw, ac, uk,
-                                 acc=self._resize(agg_pw(e1, m1), hw, ac, uk))
+                y = _resize(agg_pw(e2, m2), hw, ac, uk,
+                            acc=_resize(agg_pw(e1, m1), hw, ac, uk))
             pool.append(self._cell(bi, y, uk))
         hw = (max(pool[i].shape[2] for i in self.collect),
               max(pool[i].shape[3] for i in self.collect))
-        return self._head([self._resize(pool[i], hw, ac, uk)
+        return self._head([_resize(pool[i], hw, ac, uk)
                            for i in self.collect], uk)
-
-    def _head(self, srcs, uk: bool):
-        """The classifier over the collected entries, without their
-        concatenation."""
-        if len(srcs) == 1:
-            return conv_chw(srcs[0], self.clf_w, self.clf_b, k=1, act="none",
-                            use_kernels=uk)
-        ws, off = [], 0
-        for s in srcs:
-            ws.append(self.clf_w[:, off:off + s.shape[1]])
-            off += s.shape[1]
-        return pw_multi_chw(srcs, ws, self.clf_b, act="none",
-                            packed=self.clf_wp, use_kernels=uk)
 
     def _agg_pw(self, entry, mod, uk: bool):
         """An aggregate branch's 1x1 on a pool entry; a lazy tap's
@@ -365,10 +387,60 @@ class _Folded1x1(nn.Module):
         return self.w, self.b
 
 
-def fold_decoder(dec: MicroDecoder, compute_dtype=torch.bfloat16
-                 ) -> FoldedMicroDecoder:
-    """A ``FoldedMicroDecoder`` of ``dec``'s f32 weights, on dec's device."""
-    return FoldedMicroDecoder(dec, compute_dtype).eval()
+class FoldedTemplateDecoder(_FoldedHead):
+    """Four NCHW encoder taps -> logits [N, K, H/4, W/4], the template
+    decoder's steps as ``build_fast_template_decoder`` takes them."""
+
+    def __init__(self, dec: TemplateDecoder, compute_dtype):
+        super().__init__()
+        self.genotype = dec.genotype
+        self.aggs = [AGG_OP_NAMES[agg] for _, _, agg, _ in dec.genotype]
+        self.adapt = nn.ModuleList(_Folded1x1(a, compute_dtype)
+                                   for a in dec.adapt)
+        self.blocks = nn.ModuleList(
+            nn.ModuleDict({name: (FoldedOp if name == "op" else _Folded1x1)(
+                mod, compute_dtype) for name, mod in blk.items()})
+            for blk in dec.blocks)
+        self._register_head(dec.clf, compute_dtype)
+        self.collect = list(dec.collect)
+
+    def forward(self, taps, *, align_corners: bool = True,
+                use_kernels: bool = True):
+        uk, ac = use_kernels, align_corners
+
+        def pw(x, mod):
+            return conv_chw(x, *mod.wb(), k=1, use_kernels=uk)
+
+        pool = [pw(t, a) for t, a in zip(taps, self.adapt)]
+        for blk, agg, (i, j, _, _) in zip(self.blocks, self.aggs,
+                                          self.genotype):
+            x1, x2 = pool[i], pool[j]
+            hw = (max(x1.shape[2], x2.shape[2]),
+                  max(x1.shape[3], x2.shape[3]))
+            if agg == "psum":
+                y = _resize(pw(x2, blk["b2"]), hw, ac, uk,
+                            acc=_resize(pw(x1, blk["b1"]), hw, ac, uk))
+            else:
+                y = pw(torch.cat([_resize(x1, hw, ac, uk),
+                                  _resize(x2, hw, ac, uk)], dim=1),
+                       blk["reduce"])
+            pool.append(blk["op"](y, use_kernels=uk))
+        hw = (max(pool[i].shape[2] for i in self.collect),
+              max(pool[i].shape[3] for i in self.collect))
+        return self._head([_resize(pool[i], hw, ac, uk)
+                           for i in self.collect], uk)
+
+
+def fold_decoder(dec, compute_dtype=torch.bfloat16):
+    """The folded decoder of ``dec``'s f32 weights, on dec's device: a
+    ``FoldedMicroDecoder`` of a ``MicroDecoder``, a
+    ``FoldedTemplateDecoder`` of a ``TemplateDecoder``."""
+    if isinstance(dec, MicroDecoder):
+        return FoldedMicroDecoder(dec, compute_dtype).eval()
+    if isinstance(dec, TemplateDecoder):
+        return FoldedTemplateDecoder(dec, compute_dtype).eval()
+    raise TypeError(f"fold_decoder takes a MicroDecoder or a "
+                    f"TemplateDecoder, not {type(dec).__name__}")
 
 
 # ------------------------------------------------------- H-sharded mode
@@ -504,8 +576,8 @@ class ShardedMicroDecoder:
             ch = None if acc_chain is None else (raws[s], acc_chain[1][s],
                                                  acc_chain[2][s])
             if (fh, fw) == hw:      # nothing to resize: the adds alone
-                return FoldedMicroDecoder._resize(
-                    x, tuple(x.shape[2:]), ac, uk, acc=a, acc_chain=ch)
+                return _resize(x, tuple(x.shape[2:]), ac, uk, acc=a,
+                               acc_chain=ch)
             return resize_chw(x, hw, a, None if ch is None else ch[:2],
                               align_corners=ac, use_kernels=uk, shard=band)
 
@@ -717,3 +789,37 @@ class ShardedMicroDecoder:
         srcs = [self._resize_any(pool[i], hw, True).ts for i in d0.collect]
         return [d._head([src[s] for src in srcs], uk)
                 for s, d in enumerate(decs)]
+
+
+class ShardedTemplateDecoder:
+    """The folded template decoder over H-sharded taps, in the JAX
+    package's layout for this family (segtpu/engine/inference.py::
+    build_sharded_pallas_infer): the taps are gathered along H, the
+    decoder runs whole, once per distinct device (``decs[s]`` is the
+    ``FoldedTemplateDecoder`` on shard s's device), and each shard keeps
+    its h/n rows of the logits. ``__call__(taps)`` takes and returns what
+    ``ShardedMicroDecoder`` does. The decoder sees the unsharded taps, so
+    its logits are the unsharded decoder's bit for bit."""
+
+    def __init__(self, decs, *, align_corners: bool = True,
+                 use_kernels: bool = True):
+        self.decs, self.n = list(decs), len(decs)
+        self.ac, self.uk = align_corners, use_kernels
+        self.devices = [d.clf_b.device for d in self.decs]
+
+    @torch.inference_mode()
+    def __call__(self, taps):
+        full = [gather_h(ts) for ts in taps]
+
+        def whole(dev):
+            s = self.devices.index(dev)
+            return self.decs[s]([f[s] for f in full], align_corners=self.ac,
+                                use_kernels=self.uk)
+
+        logits = per_device(self.devices, whole)
+        rows = logits[0].shape[2]
+        if rows % self.n:
+            raise ValueError(f"the logits' {rows} rows do not divide into "
+                             f"{self.n} shards")
+        lq = rows // self.n
+        return [x[:, :, s * lq:(s + 1) * lq] for s, x in enumerate(logits)]

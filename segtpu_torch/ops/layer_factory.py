@@ -29,6 +29,9 @@ OP_NAMES = (
 )
 NUM_OPS = len(OP_NAMES)
 
+# the template (WACV'20) decoder's aggregation vocabulary, by index
+AGG_OP_NAMES = ("psum", "cat")
+
 # decoder ops use plain ReLU after their conv-bn blocks
 _ACT = "relu"
 

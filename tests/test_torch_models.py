@@ -19,7 +19,8 @@ from segtpu.models.encoders import (mbv2_init, mbv2_apply,
 from segtpu.models.segmenter import segmenter_init, segmenter_apply
 
 from segtpu_torch.convert import load_jax_params
-from segtpu_torch.models import ARCHS, TEMPLATE_ARCHS, GenotypeError, validate_genotype
+from segtpu_torch.models import (ARCHS, TEMPLATE_ARCHS, GenotypeError,
+                                 TemplateDecoder, validate_genotype)
 from segtpu_torch.models.encoders import MobileNetV2, space_to_depth
 from segtpu_torch.models.families import infer_family
 from segtpu_torch.models.segmenter import Segmenter, create_segmenter
@@ -111,11 +112,21 @@ def test_load_jax_params_rejects_mismatched_trees():
 
 
 def test_template_family_not_ported_yet():
+    """Since the template family was ported (the name is kept): a
+    template0 ``Segmenter`` builds a ``TemplateDecoder`` and takes the
+    JAX weights of ``segmenter_init``."""
     genotype = TEMPLATE_ARCHS["template0"]
     assert infer_family(genotype).name == "template"
     assert infer_family(ARCHS["arch0"]).name == "micro"
-    with pytest.raises(NotImplementedError, match="template"):
-        Segmenter(genotype, 5, generator=_gen())
+    model = Segmenter(genotype, 5, generator=_gen())
+    assert isinstance(model.decoder, TemplateDecoder)
+    p, s = _np_tree(segmenter_init(jax.random.PRNGKey(0), genotype,
+                                   num_classes=5))
+    load_jax_params(model, p, s)
+    np.testing.assert_array_equal(
+        model.decoder.blocks[1]["reduce"].w.detach().numpy(),
+        np.transpose(p["decoder"]["blocks"][1]["reduce"]["w"], (3, 2, 0, 1)))
+    assert sorted(model.decoder.blocks[0].keys()) == ["b1", "b2", "op"]
 
 
 def test_create_segmenter_defaults_to_cuda():

@@ -38,8 +38,9 @@ from segtpu_torch.kernels.front import normalize_s2d_front
 from segtpu_torch.kernels.resize_chw import (resize_chw, resize_chw_plain,
                                              shard_interp_bands)
 from segtpu_torch.kernels.upsample_argmax import upsample_argmax_plain
-from segtpu_torch.models import ARCHS
-from segtpu_torch.models.fast_decoder import (ShardedMicroDecoder, _Entry,
+from segtpu_torch.models import ARCHS, TEMPLATE_ARCHS, create_segmenter
+from segtpu_torch.models.fast_decoder import (ShardedMicroDecoder,
+                                              ShardedTemplateDecoder, _Entry,
                                               decoder_shard_plan)
 from segtpu_torch.models.segmenter import Segmenter as SegmenterNet
 from segtpu_torch.parallel import (DeviceMesh, gather_h, halo_exchange,
@@ -314,10 +315,16 @@ def test_space_mode_shape_and_family_errors():
     with pytest.raises(ValueError, match="takes a"):   # the batch is not split
         make_sharded_infer_fn(seg, make_mesh(2, 2, devices=[CPU] * 4),
                               mode="space")
-    # a decoder of the template family, which the port does not build yet
+    # a decoder of either family is taken; any other raises
+    tseg = Segmenter(create_segmenter(
+        TEMPLATE_ARCHS["template0"], K,
+        generator=torch.Generator().manual_seed(0), device="cpu"),
+        device="cpu")
+    assert isinstance(ShardedSegmenter(tseg, [CPU] * 2).decoder,
+                      ShardedTemplateDecoder)
     other = copy.copy(seg)
     other.decoder = torch.nn.Identity()
-    with pytest.raises(NotImplementedError, match="template"):
+    with pytest.raises(TypeError, match="Identity"):
         ShardedSegmenter(other, [CPU] * 2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):   # no fallback
