@@ -2,7 +2,7 @@
 """Chip smoke test of the segtpu_torch serving path on one NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one CUDA card (built for sm_90a)
-    python3 chip_smoke.py --profile  # also print a torch.profiler breakdown
+    python3 chip_smoke.py --profile  # also print torch.profiler breakdowns
     python3 chip_smoke.py --control 7  # a control: see phase_control
 
 Phases, each a hard failure (non-zero exit) when it fails:
@@ -164,6 +164,32 @@ Phases, each a hard failure (non-zero exit) when it fails:
    256x512 features, bit-identical; each timed with its twin and, for
    the tap loop and the tail, a PyTorch library yardstick.
 
+10. train: proxy training on the port (segtpu_torch.engine.trainer), arch0
+   at full width with aux heads as run_training builds it (weight seed
+   TRAIN_SEED), TrainConfig's defaults (enc_lr 1e-3, dec_lr 3e-3, enc_wd
+   1e-5, dec_wd 0, clips 3, aux_weight 0.15, Polyak), on its 16x512x512
+   crop of seeded f32 normal images and K-class labels with a band of
+   255. (1) One make_train_step on the card and on the CPU (PyTorch's own
+   convolutions) from the same weights on 2 of the images, TF32 off: the
+   loss within 1e-4, each group's gradient norm within 1e-3 or
+   NORM_SPREAD x the CPU's own spread under a one-rounding move of the
+   images, every updated parameter and BatchNorm running stat within 1e-4
+   of max(|leaf|, 1). (2) 2 warm-up and 10 timed steps
+   with CUDA events on the device-resident batch, TF32 off and at
+   PyTorch's defaults (cuDNN TF32 on), each from the seeded weights: ms a
+   step, images/s, peak memory, every loss finite and the last below the
+   first, no serving kernel launched. (3) Stage 1: the encoder's taps
+   cached (make_encoder_cache_fn), 2 + 5 timed make_decoder_train_step
+   steps: the loss falls, the encoder's parameters and stats untouched.
+   (4) make_eval_step and validate over the batch's two halves: the
+   confusion matrices count every valid label, the mIoU is finite. (5)
+   The hand-off: the trained state's Polyak weights and live BatchNorm
+   stats served by the engine at b8 1024x2048 bf16 (the slice phase's
+   frames): PATH_LAUNCHES, every decoder call against its twin as in
+   phase 5, the masks against use_kernels=False by the near-tie rule
+   (agreement printed; no floor). The control trains the same state and
+   adds the hand-off's decoder calls to the checks that must fail.
+
 Prints the kernels JSON line (each row also with its launches on
 template0's path) and the card's name and power limit, then, last,
 {"ok": true, "device": {...}}. Writes chiprun_out/chip_smoke.json.
@@ -185,9 +211,10 @@ the template forms; the stem and the 17 served blocks at phase 4's b8
 and f32 launches, their forms and windows, phase 8's four shard stems;
 the tail's phase 3 cases and forms, window_flat_forms, G2's flat tail in
 bf16 and f32 on G2's logits made before the rounding, and phase 8's
-unsharded rows) run on it. The checks that hold kernels against kernels
-(sharded or data mode against the unsharded engine) and the card
-against the CPU are not in it: the rounding moves both sides alike.
+unsharded rows; the decoder calls of phase 10's hand-off) run on it.
+The checks that hold kernels against kernels (sharded or data mode
+against the unsharded engine) and the card against the CPU are not in
+it: the rounding moves both sides alike.
 It prints how many fail and exits 0 when every one of them fails.
 """
 
@@ -2580,6 +2607,7 @@ def phase_control(torch, bits: int) -> dict:
                             what, lambda: check_call(torch, name, fn, a, what))
             del calls, sh, ref_sh
     res.update(template_control(torch, frames, bits))
+    res.update(handoff_control(torch, frames, bits))
     return res
 
 
@@ -2620,6 +2648,486 @@ def template_control(torch, frames, bits: int) -> dict:
                 gaps, MASK_FLOOR["template0"], "control template0 b8 masks"))
         for what, run in forms:
             res[what] = must_fail(what, run)
+    return res
+
+
+# ------------------------------------------------------------------ train
+#
+# Phase 10: proxy training on the port, arch0 at full width with aux heads
+# as run_training builds it, TrainConfig's defaults, at its 16x512x512
+# crop, then the hand-off of the trained weights to the served engine.
+
+TRAIN_SEED = 12
+PARITY_N = 2
+TRAIN_WARMUP, TRAIN_STEPS, STAGE1_STEPS = 2, 10, 5
+# card against CPU, one step from the same weights (cuDNN's backward is not
+# deterministic, and sums in another order than PyTorch's CPU convolutions);
+# parameters and running stats as a share of max(|leaf|, 1)
+PARITY_TOL = {"loss": 1e-4, "norm": 1e-3, "param": 1e-4, "stats": 1e-4}
+# a group's gradient norm from random init moves by up to 3.1e-3 on the
+# CPU when only the images move by one rounding (arch0, 2x512x512, the
+# encoder's; 1.1e-3 the decoder's): the norm is held to
+# max(PARITY_TOL["norm"], NORM_SPREAD x that spread, measured here), up
+# to 2.5e-2 there
+NORM_SPREAD = 8
+
+
+@contextlib.contextmanager
+def tf32(torch, conv: bool):
+    """cuDNN's TF32 switch, with cuBLAS's off (PyTorch's default), both
+    restored after."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = conv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def dims(batch) -> str:
+    """"NxHxW" of a batch's images."""
+    n, h, w, _ = batch["image"].shape
+    return f"{n}x{h}x{w}"
+
+
+@contextlib.contextmanager
+def cpu_f32_convolutions(torch):
+    """PyTorch's own CPU convolutions: oneDNN's f32 backward loses up to
+    10 % on some weight gradients on a CPU with AMX."""
+    was = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = was
+
+
+def train_batch(seed: int = 21):
+    """TrainConfig's batch (batch_size crops of crop_size) of f32 normal
+    images (the loaders' normalized NHWC) and labels of K classes with a
+    band of 255 (ignored)."""
+    cfg = train_config()
+    n, (h, w) = cfg.batch_size, cfg.crop_size
+    rng = np.random.default_rng(seed)
+    image = rng.standard_normal((n, h, w, 3), dtype=np.float32)
+    label = rng.integers(0, K, (n, h, w)).astype(np.int32)
+    label[:, h * 25 // 64:h * 29 // 64] = 255
+    return {"image": image, "label": label}
+
+
+def train_model(torch):
+    """arch0 with aux heads, as run_training builds it, on the CPU."""
+    from segtpu_torch.models import ARCHS, create_segmenter
+    gen = torch.Generator().manual_seed(TRAIN_SEED)
+    return create_segmenter(ARCHS["arch0"], K, aux=True, device="cpu",
+                            generator=gen)
+
+
+def train_config():
+    from segtpu_torch.train import TrainConfig
+    return TrainConfig(num_classes=K)
+
+
+def train_setup(torch, model):
+    """(state, step): make_train_step with TrainConfig's defaults (both
+    SGD groups, clips, aux weight, Polyak) on ``model``'s device."""
+    from segtpu_torch.engine.trainer import init_train_state, make_train_step
+    from segtpu_torch.utils.solvers import create_optimisers
+    cfg = train_config()
+    opt = create_optimisers(
+        enc_lr=cfg.enc_lr, dec_lr=cfg.dec_lr, enc_wd=cfg.enc_wd,
+        dec_wd=cfg.dec_wd, enc_grad_clip=cfg.enc_grad_clip,
+        dec_grad_clip=cfg.dec_grad_clip)
+    return (init_train_state(model, opt, do_polyak=cfg.do_polyak),
+            make_train_step(model.genotype, opt, num_classes=K,
+                            aux_weight=cfg.aux_weight))
+
+
+def one_step(torch, model, batch):
+    """(loss, group norms, params, stats) after one step of ``model``."""
+    state, step = train_setup(torch, model)
+    state, loss = step(state, batch)
+    return (float(loss), {g: float(n) for g, n in state.grad_norms.items()},
+            state.params, state.stats)
+
+
+def train_parity(torch, batch):
+    """Phase 10.1: one step on the card and on the CPU from the same
+    weights on PARITY_N images, TF32 off; the CPU's own spread is the step
+    on the images one rounding apart."""
+    import copy
+    small = {k: v[:PARITY_N] for k, v in batch.items()}
+    rng = np.random.default_rng(22)
+    moved = dict(small, image=(small["image"] * (1.0 + 2.0 ** -23 * rng.choice(
+        [-1.0, 1.0], small["image"].shape))).astype(np.float32))
+    cpu_model = train_model(torch)
+    spread_model = copy.deepcopy(cpu_model)
+    card_model = copy.deepcopy(cpu_model).cuda()
+    with tf32(torch, False):
+        loss_g, norms_g, params_g, stats_g = one_step(torch, card_model, small)
+    with cpu_f32_convolutions(torch):
+        loss_c, norms_c, params_c, stats_c = one_step(torch, cpu_model, small)
+        _, norms_s, _, _ = one_step(torch, spread_model, moved)
+    worst = {"loss": abs(loss_g - loss_c) / abs(loss_c)}
+    for g in norms_c:
+        rel = abs(norms_g[g] - norms_c[g]) / norms_c[g]
+        spread = abs(norms_s[g] - norms_c[g]) / norms_c[g]
+        tol = max(PARITY_TOL["norm"], NORM_SPREAD * spread)
+        print(f"[train] parity {g} gradient norm: card {norms_g[g]!r} CPU "
+              f"{norms_c[g]!r} rel {rel!r} (CPU spread {spread!r}, tol "
+              f"{tol!r})")
+        check(rel <= tol, f"{g} gradient norm card vs CPU rel {rel} > {tol}")
+        worst[f"norm_{g}"] = rel
+    # each leaf's worst difference as a share of max(|leaf|, 1): a
+    # BatchNorm's running mean after a zero-mean input is ~0 itself, and
+    # its features' unit scale is what a difference is seen against
+    for key, got, want in (("param", params_g, params_c),
+                           ("stats", stats_g, stats_c)):
+        worst[key], worst[f"{key}_leaf"] = max(
+            (((got[n].detach().cpu() - t.detach()).abs().max()
+              / t.detach().abs().max().clamp_min(1.0)).item(), n)
+            for n, t in want.items())
+    print(f"[train] parity card vs CPU, one step {dims(small)}, "
+          f"TF32 off: loss {loss_g!r} vs {loss_c!r}; worst {worst}")
+    for key in ("loss", "param", "stats"):
+        check(worst[key] <= PARITY_TOL[key],
+              f"card vs CPU {key}: {worst[key]} > {PARITY_TOL[key]}")
+    return worst
+
+
+def run_train(torch, gbatch, warmup: int, steps: int):
+    """(state, losses, ms a step, peak bytes): make_train_step on a new
+    seeded model on the card, ``warmup`` steps and then ``steps`` timed
+    with CUDA events, the serving kernels' counts read around them."""
+    state, step = train_setup(torch, train_model(torch).cuda())
+    losses = []
+    for _ in range(warmup):
+        state, loss = step(state, gbatch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        state, loss = step(state, gbatch)
+        losses.append(loss)
+    end.record()
+    torch.cuda.synchronize()
+    launched = {n: c for n, c in read_counts().items() if c}
+    check(not launched, f"the train step launched serving kernels: {launched}")
+    ms = start.elapsed_time(end) / max(steps, 1)
+    return state, [float(x) for x in losses], ms, \
+        torch.cuda.max_memory_allocated()
+
+
+def falls(losses, what):
+    check(all(np.isfinite(losses)), f"{what}: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"{what}: the loss did not fall: {losses}")
+
+
+def train_stage1(torch, model, gbatch):
+    """Phase 10.3: the encoder's taps cached once, then the decoder alone
+    over them (make_decoder_train_step, TrainConfig's decoder group as one
+    chain), timed as phase 10.2; the encoder untouched."""
+    import copy
+    from segtpu_torch.engine.trainer import (init_train_state,
+                                             make_decoder_train_step,
+                                             make_encoder_cache_fn)
+    from segtpu_torch.utils.solvers import sgd_chain
+    model = copy.deepcopy(model)
+    before = {k: v.clone() for k, v in model.encoder.state_dict().items()}
+    cfg = train_config()
+    opt = sgd_chain(cfg.dec_lr, wd=cfg.dec_wd, clip=cfg.dec_grad_clip)
+    state = init_train_state(model.decoder, opt, do_polyak=cfg.do_polyak)
+    step = make_decoder_train_step(model.genotype, opt, num_classes=K,
+                                   aux_weight=cfg.aux_weight)
+    t0 = time.perf_counter()
+    taps = make_encoder_cache_fn()(model.encoder, gbatch["image"])
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    b = {"taps": taps, "label": gbatch["label"]}
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        state, loss = step(state, b)
+        losses.append(loss)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(STAGE1_STEPS):
+        state, loss = step(state, b)
+        losses.append(loss)
+    end.record()
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    falls(losses, "stage 1")
+    after = model.encoder.state_dict()
+    check(all(torch.equal(before[k], after[k]) for k in before),
+          "stage 1 touched the encoder's parameters or stats")
+    ms = start.elapsed_time(end) / STAGE1_STEPS
+    print(f"[train] stage 1: taps cached in {cache_s:.3f} s, "
+          f"{STAGE1_STEPS} decoder steps {ms:.4f} ms a step, losses "
+          f"{losses}; the encoder untouched")
+    return {"ms": ms, "losses": losses, "cache_s": cache_s}
+
+
+def train_eval(torch, state, gbatch):
+    """Phase 10.4: make_eval_step and validate over the batch's halves on
+    the trained state's eval_params_stats."""
+    from segtpu_torch.engine.trainer import (eval_params_stats,
+                                             make_eval_step, validate)
+    eval_step = make_eval_step(state.model.genotype, num_classes=K)
+    params, stats = eval_params_stats(state)
+    half = len(gbatch["label"]) // 2
+    batches = [{k: v[i:i + half] for k, v in gbatch.items()}
+               for i in (0, half)]
+    total = sum(int(eval_step(params, stats, b).sum()) for b in batches)
+    label = gbatch["label"]
+    valid = int(((label >= 0) & (label < K)).sum())
+    check(total == valid, f"confusion matrices count {total} pixels, the "
+          f"labels {valid} valid ones")
+    miou = validate(eval_step, params, stats, batches, num_classes=K)
+    check(bool(np.isfinite(miou)), f"mIoU {miou} not finite")
+    print(f"[train] eval: 2 batches of {dims(batches[0])}, "
+          f"confusion total {total} = valid labels, mIoU {miou!r}")
+    return miou
+
+
+def handoff_model(torch, state):
+    """The trained state's eval_params_stats (Polyak weights, live BN
+    stats) in a Segmenter on the CPU, as a user serves it."""
+    from segtpu_torch.engine.trainer import eval_params_stats
+    params, stats = eval_params_stats(state)
+    model = train_model(torch)
+    model.load_state_dict({k: v.detach().cpu()
+                           for k, v in {**params, **stats}.items()})
+    return model
+
+
+def handoff_call_checks(torch, model, x, what):
+    """[(what, kernel name, check())]: every kernel call of ``model``'s
+    folded bf16 decoder on the kernels' taps of the uint8 frames ``x`` (on
+    the card), held against its plain twin by ``check_call``."""
+    from segtpu_torch.kernels.front import normalize_s2d_front
+    from segtpu_torch.models.fast_decoder import fold_decoder
+    from segtpu_torch.models.fast_encoder import fold_encoder
+    enc = fold_encoder(model.encoder, torch.bfloat16).to("cuda")
+    dec = fold_decoder(model.decoder, torch.bfloat16).to("cuda")
+    with torch.inference_mode():
+        taps = enc(normalize_s2d_front(x))
+    _, calls = record_decoder(torch, dec, taps)
+    out = []
+    for i, (name, fn, a) in enumerate(calls):
+        w = f"{what} call {i:2d} {name}"
+        out.append((w, name, lambda name=name, fn=fn, a=a, w=w: check_call(
+            torch, name, fn, a, w)))
+    return out
+
+
+def train_handoff(torch, state, frames):
+    """Phase 10.5: the trained weights served by the engine at b8
+    1024x2048 bf16, counts read around predict_batch (PATH_LAUNCHES);
+    every decoder call against its twin; the masks against use_kernels=
+    False by the near-tie rule (no floor: the agreement is recorded)."""
+    from segtpu_torch.engine import Segmenter
+    model = handoff_model(torch, state)
+    seg = Segmenter(model, device="cuda")
+    ref = Segmenter(model, device="cuda", use_kernels=False)
+    reset_counts()
+    masks = seg.predict_batch(frames)
+    launches = read_counts()
+    print(f"[train] hand-off predict_batch b8 {H}x{W}: launches={launches}")
+    check(launches == PATH_LAUNCHES,
+          f"hand-off launches {launches}, expected {PATH_LAUNCHES}")
+    check(masks.shape == (N, H, W) and int(masks.max()) < K,
+          f"hand-off masks {masks.shape} max {masks.max()}")
+    x = torch.from_numpy(frames).cuda()
+    checks = handoff_call_checks(torch, model, x, "hand-off")
+    with torch.inference_mode():
+        for _, _, run in checks:
+            run()
+    rate = masks_hold(torch, masks, ref.predict_batch(frames),
+                      tie_gaps(torch, ref, x), 0.0,
+                      "hand-off b8 masks vs use_kernels=False")
+    print(f"[train] hand-off: {len(checks)} decoder calls against their "
+          f"twins, masks agree on {rate!r}, classes "
+          f"{np.bincount(masks.ravel(), minlength=K).tolist()}")
+    return {"mask_agreement": rate, "calls": len(checks),
+            "launches": launches}
+
+
+def phase_train(torch, frames):
+    """Phase 10 (see the module doc). Returns its numbers for the JSON."""
+    torch.cuda.empty_cache()
+    batch = train_batch()
+    parity = train_parity(torch, batch)
+    gbatch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    gpu = gpu_line()
+    timed = {}
+    n = len(batch["label"])
+    for name, conv in (("tf32_off", False), ("pytorch_default", True)):
+        with tf32(torch, conv):
+            st, losses, ms, peak = run_train(torch, gbatch, TRAIN_WARMUP,
+                                             TRAIN_STEPS)
+        falls(losses, f"train ({name})")
+        timed[name] = {"ms": ms, "images_per_s": n * 1000.0 / ms,
+                       "peak_bytes": peak, "losses": losses,
+                       "cudnn_tf32": conv, "matmul_tf32": False}
+        print(f"[train] make_train_step arch0 aux {dims(batch)}, "
+              f"cudnn.allow_tf32={conv} matmul.allow_tf32=False: "
+              f"{ms:.4f} ms a step ({TRAIN_STEPS} timed after "
+              f"{TRAIN_WARMUP}), {n * 1000.0 / ms:.2f} images/s, peak "
+              f"{peak / 2 ** 30:.3f} GiB on {gpu}; losses {losses}")
+        if name == "tf32_off":
+            state = st
+        del st
+    with tf32(torch, False):
+        stage1 = train_stage1(torch, state.model, gbatch)
+        miou = train_eval(torch, state, gbatch)
+    handoff = train_handoff(torch, state, frames)
+    return {"gpu": gpu, "parity_worst": parity, "steps": timed,
+            "stage1": stage1, "eval_miou": miou, "handoff": handoff}
+
+
+TRAIN_KERNEL_KINDS = (
+    ("convolutions and products", ("conv", "cudnn", "gemm", "xmma", "sm90",
+                                   "sm80", "cutlass", "dgrad", "wgrad")),
+    ("optimizer (foreach)", ("multi_tensor", "foreach")),
+    ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "index")))
+
+
+def kernel_rows(torch, p):
+    """[(name, ms, launches)] of the device's kernels in a profile (an
+    operator's row repeats its kernels' time, so kernels only)."""
+    return [(e.key, (getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0)) / 1e3,
+             e.count)
+            for e in p.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def bn_alone(torch, state, step, gbatch, reps: int = 3) -> dict:
+    """The train-mode BatchNorm (``core.layers.bn_train``) of one step,
+    forward and backward, run alone: one step run with a spy that records
+    the shape of each call, then every call at its shape on seeded
+    inputs, its output's gradient the same shape. Its kernels' device
+    time (profiler) and its time on the stream (CUDA events, over
+    ``reps`` runs, the host's gaps included)."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    import segtpu_torch.core.layers as layers
+    real, shapes = layers.bn_train, []
+
+    def spy(y, *rest):
+        shapes.append((tuple(y.shape), y.dtype))
+        return real(y, *rest)
+
+    layers.bn_train = spy
+    try:
+        step(state, gbatch)
+    finally:
+        layers.bn_train = real
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    calls = []
+    for shape, dtype in shapes:
+        c = shape[1]
+        calls.append((
+            torch.randn(shape, generator=gen, device="cuda", dtype=dtype,
+                        requires_grad=True),
+            torch.ones(c, device="cuda", requires_grad=True),
+            torch.zeros(c, device="cuda", requires_grad=True),
+            torch.zeros(c, device="cuda"), torch.ones(c, device="cuda"),
+            torch.randn(shape, generator=gen, device="cuda", dtype=dtype)))
+
+    def run():
+        for y, scale, bias, mean, var, g in calls:
+            torch.autograd.grad(real(y, scale, bias, mean, var),
+                                (y, scale, bias), g)
+
+    run()
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CUDA]) as p:
+        run()
+        torch.cuda.synchronize()
+    rows = kernel_rows(torch, p)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return {"calls": len(calls), "device_ms": sum(r[1] for r in rows),
+            "launches": sum(r[2] for r in rows),
+            "stream_ms": start.elapsed_time(end) / reps}
+
+
+def profile_train(torch):
+    """``--profile``: device time by kernel over two make_train_step
+    steps (TF32 off) on TrainConfig's batch, summed by kind of kernel (the
+    first kind whose words a kernel's name holds), beside the steps' time
+    on the host's clock; then the step's BatchNorm timed alone
+    (``bn_alone``)."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    batch = train_batch()
+    gbatch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    with tf32(torch, False):
+        state, step = train_setup(torch, train_model(torch).cuda())
+        for _ in range(TRAIN_WARMUP):
+            state, _ = step(state, gbatch)
+        torch.cuda.synchronize()
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                state, _ = step(state, gbatch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        bn = bn_alone(torch, state, step, gbatch)
+    kinds, launches = {}, 0
+    for key, ms, count in kernel_rows(torch, p):
+        launches += count
+        kind = next((k for k, words in TRAIN_KERNEL_KINDS
+                     if any(w in key.lower() for w in words)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    dev_ms = sum(kinds.values())
+    print(f"[profile] train step {dims(batch)}: two steps "
+          f"{wall_ms:.2f} ms on the host's clock (profiler on), {dev_ms:.2f} "
+          f"ms of device time in {launches} kernel launches; by kind "
+          + ", ".join(f"{k} {v:.2f} ms ({100 * v / dev_ms:.1f} %)"
+                      for k, v in sorted(kinds.items(),
+                                         key=lambda kv: -kv[1])))
+    print(f"[profile] train step {dims(batch)}: BatchNorm (bn_train) "
+          f"forward and backward, its {bn['calls']} calls of a step run "
+          f"alone: {bn['device_ms']:.4f} ms of device time in "
+          f"{bn['launches']} launches ({200 * bn['device_ms'] / dev_ms:.1f} "
+          f"% of a step's {dev_ms / 2:.2f}), {bn['stream_ms']:.4f} ms on the "
+          f"stream")
+    print(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    return {"wall_ms_two_steps": wall_ms, "device_ms_two_steps": dev_ms,
+            "launches_two_steps": launches, "by_kind_ms": kinds,
+            "bn_alone": bn}
+
+
+def handoff_control(torch, frames, bits: int) -> dict:
+    """The control's hand-off checks: the trained state of phase 10.2
+    (TF32 off), its decoder calls recorded before the rounding and run
+    inside ``coarse_decoder(bits)``. Returns {check: failed}."""
+    batch = train_batch()
+    gbatch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    state, *_ = run_train(torch, gbatch, TRAIN_WARMUP, TRAIN_STEPS)
+    del gbatch
+    checks = handoff_call_checks(torch, handoff_model(torch, state),
+                                 torch.from_numpy(frames).cuda(), "hand-off")
+    res = {}
+    with coarse_decoder(torch, bits):
+        with torch.inference_mode():
+            for what, _, run in checks:
+                res[f"{what} vs its twin"] = must_fail(what, run)
     return res
 
 
@@ -2709,8 +3217,10 @@ def main() -> None:
                 "tensor_cores_max_abs_err": r["tc_max_abs_err"]}
                if "tc_ms" in r else {}),
             **({"graph_ms": r["graph_ms"]} if "graph_ms" in r else {})})
+    train = phase_train(torch, frames)
     if "--profile" in sys.argv[1:]:
         profile(torch, seg, seg_t, frames)
+        train["profile"] = profile_train(torch)
     gpu = gpu_line()
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -2724,7 +3234,7 @@ def main() -> None:
                    "template0": {
                        "launches": t_launches, "mask_agreement": t_rate,
                        "space_launches": t_space_launches},
-                   "experiments": experiments},
+                   "experiments": experiments, "train": train},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(gpu)
@@ -2761,14 +3271,11 @@ def profile(torch, seg, seg_t, frames):
                     fn(x)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
-        avgs = p.key_averages()
-        # kernels only: an operator's row repeats its kernels' time
-        dev_ms = sum(getattr(e, "self_device_time_total", None)
-                     or getattr(e, "self_cuda_time_total", 0) for e in avgs
-                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        dev_ms = sum(r[1] for r in kernel_rows(torch, p))
         print(f"[profile] {what}: two calls {wall_ms:.2f} ms on the host's "
               f"clock (profiler on), {dev_ms:.2f} ms of device time")
-        print(avgs.table(sort_by="cuda_time_total", row_limit=22))
+        print(p.key_averages().table(sort_by="cuda_time_total",
+                                     row_limit=22))
 
 
 if __name__ == "__main__":

@@ -15,11 +15,17 @@ same name:
   ``stem_s2d_kernel``.
 
 Any missing, extra or mis-shaped leaf raises. No JAX import.
+
+``to_jax_params(model)`` is the way back: the model's parameters and
+buffers as numpy pytrees in ``segmenter_init``'s layout (nested dicts,
+lists where the keys are indices, conv kernels OIHW -> HWIO);
+``to_jax_tree`` does the same for any name -> tensor mapping, such as
+gradients or Polyak averages.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -68,3 +74,38 @@ def load_jax_params(model: torch.nn.Module, params, stats) -> torch.nn.Module:
                                  f"match the model's {tuple(dst.shape)}")
             dst.copy_(torch.tensor(arr, dtype=torch.float32))
     return model
+
+
+def _listify(tree):
+    """Nested dicts whose keys are all indices 0..n-1 become lists."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _listify(v) for k, v in tree.items()}
+    if out and all(k.isdigit() for k in out):
+        idx = sorted(out, key=int)
+        if [int(k) for k in idx] == list(range(len(idx))):
+            return [out[k] for k in idx]
+    return out
+
+
+def to_jax_tree(named: Mapping[str, torch.Tensor]):
+    """``{"encoder.blocks.3.dw.w": tensor, ...}`` -> the numpy pytree of
+    the same paths, conv kernels ``w`` OIHW -> HWIO."""
+    tree: dict = {}
+    for key, t in named.items():
+        arr = np.array(t.detach().float().cpu())      # a copy, never a view
+        if key.rsplit(".", 1)[-1] == "w":
+            arr = np.transpose(arr, (2, 3, 1, 0))            # OIHW -> HWIO
+        *path, leaf = key.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+    return _listify(tree)
+
+
+def to_jax_params(model: torch.nn.Module):
+    """(params, stats) of ``model`` as numpy pytrees in the JAX package's
+    layout: its parameters, and its BatchNorm running stats."""
+    return (to_jax_tree(dict(model.named_parameters())),
+            to_jax_tree(dict(model.named_buffers())))

@@ -5,10 +5,13 @@ Parameter names and shapes follow the JAX pytrees leaf for leaf, so
 a conv holds ``w`` (OIHW here, HWIO in JAX), a BatchNorm ``scale`` and
 ``bias`` (parameters) and ``mean`` and ``var`` (buffers).
 
-Eval-mode only: this slice serves. BatchNorm follows ``bn_apply`` in
-eval mode: upcast to f32, ``rsqrt(var + eps) * scale``, round back to
-the compute dtype. Padding is torch-style symmetric, as ``conv_apply``
-builds it explicitly.
+BatchNorm follows ``bn_apply``: ``ConvBN`` normalizes with its running
+stats in eval mode (``bn_eval``: upcast to f32, ``rsqrt(var + eps) *
+scale``, round back to the compute dtype) and with the batch's in train
+mode (``bn_train``), chosen by ``module.training``. The port's modules
+start in eval mode, as the JAX apply functions default to
+``train=False``: training asks for batch statistics with ``.train()``.
+Padding is torch-style symmetric, as ``conv_apply`` builds it explicitly.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 def relu(x):
@@ -49,6 +53,29 @@ def bn_eval(y, scale, bias, mean, var):
     shift = bias - mean * inv
     yf = y.float() * inv[:, None, None] + shift[:, None, None]
     return yf.to(y.dtype)
+
+
+def bn_train(y, scale, bias, mean, var):
+    """Train BatchNorm over N, H, W, in f32, rounded back to y's dtype.
+
+    The batch mean and the two-pass biased variance ``mean((y -
+    mean)^2)`` normalize (E[y^2] - E[y]^2 loses most of its bits where
+    mean^2 >> var); the running buffers ``mean`` and ``var`` move in
+    place, ``(1 - 0.1) * running + 0.1 * batch``, the variance unbiased
+    by n / (n - 1) with n = N*H*W. Written out rather than
+    ``F.batch_norm``, whose sum order and variance form differ from the
+    JAX package's ``bn_apply``."""
+    yf = y.float()
+    batch_mean = yf.mean((0, 2, 3))
+    batch_var = (yf - batch_mean[:, None, None]).square().mean((0, 2, 3))
+    n = y.numel() // y.shape[1]
+    with torch.no_grad():
+        unbiased = batch_var * (n / max(n - 1, 1))
+        mean.copy_((1 - BN_MOMENTUM) * mean + BN_MOMENTUM * batch_mean)
+        var.copy_((1 - BN_MOMENTUM) * var + BN_MOMENTUM * unbiased)
+    inv = torch.rsqrt(batch_var + BN_EPS) * scale
+    shift = bias - batch_mean * inv
+    return (yf * inv[:, None, None] + shift[:, None, None]).to(y.dtype)
 
 
 class Conv(nn.Module):
@@ -88,9 +115,11 @@ class ConvBN(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
         self.register_buffer("mean", torch.zeros(cout))
         self.register_buffer("var", torch.ones(cout))
+        self.eval()
 
     def bn(self, y):
-        return bn_eval(y, self.scale, self.bias, self.mean, self.var)
+        norm = bn_train if self.training else bn_eval
+        return norm(y, self.scale, self.bias, self.mean, self.var)
 
     def forward(self, x):
         y = F.conv2d(x, self.w.to(x.dtype), stride=self.stride,

@@ -96,6 +96,7 @@ class MobileNetV2(nn.Module):
                                      generator=generator))
                 cin = c
         self.blocks = nn.ModuleList(blocks)
+        self.eval()
 
     def forward(self, x, input_format: str = "nhwc3"):
         if input_format == "s2d12":

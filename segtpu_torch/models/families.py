@@ -2,8 +2,9 @@
 
 A family bundles the genotype check and the decoder module: the micro
 (CVPR'19) ``MicroDecoder`` and the template (WACV'20)
-``TemplateDecoder``, built with the same arguments, so the segmenter
-and the engine take either.
+``TemplateDecoder``, built with the same arguments (``aux`` and
+``aux_cell`` included; the template family ignores ``aux_cell``), so the
+segmenter, the engine and the trainer take either.
 """
 
 from __future__ import annotations

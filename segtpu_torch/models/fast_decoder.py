@@ -399,7 +399,8 @@ class FoldedTemplateDecoder(_FoldedHead):
                                    for a in dec.adapt)
         self.blocks = nn.ModuleList(
             nn.ModuleDict({name: (FoldedOp if name == "op" else _Folded1x1)(
-                mod, compute_dtype) for name, mod in blk.items()})
+                mod, compute_dtype) for name, mod in blk.items()
+                if name != "aux_clf"})      # training's heads: not served
             for blk in dec.blocks)
         self._register_head(dec.clf, compute_dtype)
         self.collect = list(dec.collect)

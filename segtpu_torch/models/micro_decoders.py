@@ -12,7 +12,14 @@ entries i and j (aggregate cell), runs the contextual cell and appends
 the result. Entries no block consumes are upsampled to the largest
 size, concatenated and fed to a 1x1 classifier with bias (logits at
 1/4 input resolution). Submodules register in ``micro_decoder_init``'s
-order: adapt, blocks (agg, cell), clf.
+order: adapt, blocks (agg, cell, aux), clf.
+
+Training builds per-block auxiliary heads (``aux=True``): block b's
+``blocks.{b}.aux.clf``, a 1x1 classifier with bias on the block's output,
+after a private contextual cell ``blocks.{b}.aux.cell`` with
+``aux_cell=True`` — the JAX pytree's paths, so ``load_jax_params`` maps
+them by name. They draw from the generator after every other module, so
+a decoder with heads holds the same other weights as one without.
 """
 
 from __future__ import annotations
@@ -135,6 +142,7 @@ class MicroDecoder(nn.Module):
 
     def __init__(self, genotype, inp_sizes: Sequence[int], num_classes: int,
                  *, agg_size: int = AGG_SIZE, repeats: int = 1,
+                 aux: bool = False, aux_cell: bool = False,
                  generator: torch.Generator):
         super().__init__()
         validate_genotype(genotype, num_inputs=len(inp_sizes))
@@ -152,16 +160,36 @@ class MicroDecoder(nn.Module):
         self.collect = _decoder_collect_inds(conns, len(inp_sizes))
         self.clf = Conv(len(self.collect) * agg_size, num_classes, 1,
                         bias=True, generator=generator)
+        if aux:
+            for blk in self.blocks:
+                head = {}
+                if aux_cell:
+                    head["cell"] = Cell(cell_config, agg_size,
+                                        repeats=repeats, generator=generator)
+                head["clf"] = Conv(agg_size, num_classes, 1, bias=True,
+                                   generator=generator)
+                blk["aux"] = nn.ModuleDict(head)
+        self.eval()
 
-    def forward(self, taps, *, align_corners: bool = True):
+    def forward(self, taps, *, align_corners: bool = True,
+                with_aux: bool = False):
+        """logits, or (logits, aux logits of each block with a head, at
+        the block's resolution) with ``with_aux``."""
         _, conns = self.genotype
         pool = [a(t) for a, t in zip(self.adapt, taps)]
+        aux = []
         for b, (i, j) in enumerate(conns):
             blk = self.blocks[b]
             y = blk["agg"](pool[i], pool[j], align_corners=align_corners)
-            pool.append(blk["cell"](y))
+            y = blk["cell"](y)
+            pool.append(y)
+            if with_aux and "aux" in blk:
+                head = blk["aux"]
+                aux.append(head["clf"](head["cell"](y) if "cell" in head
+                                       else y))
         h = max(pool[i].shape[-2] for i in self.collect)
         w = max(pool[i].shape[-1] for i in self.collect)
         feats = [resize_bilinear(pool[i], (h, w), align_corners=align_corners)
                  for i in self.collect]
-        return self.clf(torch.cat(feats, dim=1))
+        logits = self.clf(torch.cat(feats, dim=1))
+        return (logits, aux) if with_aux else logits

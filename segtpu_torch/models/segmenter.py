@@ -1,7 +1,10 @@
 """Encoder + decoder composition (counterpart: segtpu/models/segmenter.py).
 
 ``Segmenter.forward`` returns logits at 1/4 input resolution
-[N, K, H/4, W/4]; the engine upsamples.
+[N, K, H/4, W/4]; the engine upsamples. In train mode (``.train()``)
+every BatchNorm normalizes with its batch's stats and moves its running
+stats; ``with_aux`` adds the decoder's auxiliary logits and
+``freeze_encoder`` runs the encoder as stage-1 proxy training does.
 """
 
 from __future__ import annotations
@@ -15,15 +18,17 @@ from segtpu_torch.utils.helpers import resolve_device
 
 
 class Segmenter(nn.Module):
-    """MobileNet-v2 encoder + genotype decoder, eval mode.
+    """MobileNet-v2 encoder + genotype decoder.
 
     x: [N, 3, H, W] (``input_format="nhwc3"``) or its space-to-depth
     form [N, 12, H/2, W/2] (``"s2d12"``); H and W multiples of 32.
+    ``aux`` builds the decoder's per-block auxiliary heads (training),
+    ``aux_cell`` a private cell in each (micro family).
     """
 
     def __init__(self, genotype, num_classes: int, *, agg_size: int = 48,
-                 repeats: int = 1, family: str = None,
-                 generator: torch.Generator):
+                 repeats: int = 1, aux: bool = False, aux_cell: bool = False,
+                 family: str = None, generator: torch.Generator):
         super().__init__()
         fam = get_family(family) if family else infer_family(genotype)
         fam.validate(genotype)
@@ -32,12 +37,31 @@ class Segmenter(nn.Module):
         self.encoder = MobileNetV2(generator=generator)
         self.decoder = fam.build(genotype, MBV2_TAP_CHANNELS, num_classes,
                                  agg_size=agg_size, repeats=repeats,
+                                 aux=aux, aux_cell=aux_cell,
                                  generator=generator)
+        self.eval()
 
     def forward(self, x, *, input_format: str = "nhwc3",
-                align_corners: bool = True):
-        taps = self.encoder(x, input_format=input_format)
-        return self.decoder(taps, align_corners=align_corners)
+                align_corners: bool = True, with_aux: bool = False,
+                freeze_encoder: bool = False):
+        """logits, or (logits, aux logits) with ``with_aux``.
+
+        ``freeze_encoder`` runs the encoder in eval mode (its BatchNorm on
+        the running stats, which stay as they are) and without autograd,
+        so its parameters get no gradient: the JAX package's
+        ``stop_gradient`` on the taps."""
+        if freeze_encoder:
+            was_training = self.encoder.training
+            self.encoder.eval()
+            try:
+                with torch.no_grad():
+                    taps = self.encoder(x, input_format=input_format)
+            finally:
+                self.encoder.train(was_training)
+        else:
+            taps = self.encoder(x, input_format=input_format)
+        return self.decoder(taps, align_corners=align_corners,
+                            with_aux=with_aux)
 
 
 def create_segmenter(genotype, num_classes: int, *,

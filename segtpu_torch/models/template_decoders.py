@@ -15,11 +15,11 @@ The pool starts with the 4 adapted encoder taps (1x1 conv-bn-relu to
   1x1 conv-bn-relu from 2 * agg_size channels (``reduce``).
 
 Entries no block consumes are upsampled to the largest size,
-concatenated and fed to a 1x1 classifier with bias. Eval mode only:
-the training-only auxiliary heads (``aux_clf``) are not built, as
-``segmenter_init`` leaves them out by default. Submodules register in
-``template_decoder_init``'s order: adapt, blocks (b1, b2 or reduce,
-then op), clf.
+concatenated and fed to a 1x1 classifier with bias. Training builds a
+per-block auxiliary classifier (``aux=True``): ``blocks.{b}.aux_clf``, a
+1x1 with bias on the block's output, drawn from the generator after
+every other module. Submodules register in ``template_decoder_init``'s
+order: adapt, blocks (b1, b2 or reduce, then op, then aux_clf), clf.
 """
 
 from __future__ import annotations
@@ -64,7 +64,11 @@ class TemplateDecoder(nn.Module):
 
     def __init__(self, genotype, inp_sizes: Sequence[int], num_classes: int,
                  *, agg_size: int = AGG_SIZE, repeats: int = 1,
+                 aux: bool = False, aux_cell: bool = False,
                  generator: torch.Generator):
+        # template decoders have no private aux cell: ``aux_cell`` is
+        # accepted for the families' common signature and ignored, as in
+        # the JAX package
         super().__init__()
         validate_template_genotype(genotype, num_inputs=len(inp_sizes))
         self.genotype = genotype
@@ -89,9 +93,18 @@ class TemplateDecoder(nn.Module):
                                              len(inp_sizes))
         self.clf = Conv(len(self.collect) * agg_size, num_classes, 1,
                         bias=True, generator=generator)
+        if aux:
+            for blk in self.blocks:
+                blk["aux_clf"] = Conv(agg_size, num_classes, 1, bias=True,
+                                      generator=generator)
+        self.eval()
 
-    def forward(self, taps, *, align_corners: bool = True):
+    def forward(self, taps, *, align_corners: bool = True,
+                with_aux: bool = False):
+        """logits, or (logits, aux logits of each block with a head, at
+        the block's resolution) with ``with_aux``."""
         pool = [a(t) for a, t in zip(self.adapt, taps)]
+        aux = []
         for blk, (i, j, agg, _) in zip(self.blocks, self.genotype):
             x1, x2 = pool[i], pool[j]
             hw = (max(x1.shape[-2], x2.shape[-2]),
@@ -106,9 +119,13 @@ class TemplateDecoder(nn.Module):
                     [resize_bilinear(x1, hw, align_corners=align_corners),
                      resize_bilinear(x2, hw, align_corners=align_corners)],
                     dim=1))
-            pool.append(blk["op"](y))
+            y = blk["op"](y)
+            pool.append(y)
+            if with_aux and "aux_clf" in blk:
+                aux.append(blk["aux_clf"](y))
         h = max(pool[i].shape[-2] for i in self.collect)
         w = max(pool[i].shape[-1] for i in self.collect)
         feats = [resize_bilinear(pool[i], (h, w), align_corners=align_corners)
                  for i in self.collect]
-        return self.clf(torch.cat(feats, dim=1))
+        logits = self.clf(torch.cat(feats, dim=1))
+        return (logits, aux) if with_aux else logits

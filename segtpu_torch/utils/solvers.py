@@ -1,0 +1,124 @@
+"""Optimizers (counterpart: segtpu/utils/solvers.py).
+
+``GroupSGD`` runs the JAX package's optax chain on each group of
+parameters, exactly:
+
+1. ``clip_by_global_norm(clip)``: the group's norm is
+   sqrt(sum of every leaf's sum of squares); gradients stay as they are
+   while norm < clip and become ``g / norm * clip`` otherwise (not
+   ``torch.nn.utils.clip_grad_norm_``, which adds 1e-6 and clamps);
+2. ``add_decayed_weights(wd)``: ``g + wd * p``;
+3. ``sgd(lr, momentum)``: ``trace = g + momentum * trace`` from zeros,
+   then ``p += -lr * trace`` (momentum 0 is optax's plain ``sgd(lr)``).
+
+A parameter without a gradient (a frozen encoder's) steps on a zero
+gradient, as optax steps on the zeros ``stop_gradient`` gives: its
+weight decay and momentum still move it. Parameters and state are
+updated in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class SGDGroup:
+    lr: float
+    momentum: float
+    wd: float
+    clip: float
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt(sum of every tensor's sum of squares), a 0-d f32 tensor."""
+    norms = torch._foreach_norm(list(tensors))
+    return torch.stack(norms).square().sum().sqrt()
+
+
+class GroupSGD:
+    """Per-group SGD: ``groups`` maps a label to its ``SGDGroup``. A single
+    group takes every parameter; several split them by top-level module,
+    ``encoder`` or ``decoder``, as ``optax.multi_transform`` labels the JAX
+    tree."""
+
+    def __init__(self, groups: Mapping[str, SGDGroup]):
+        self.groups = dict(groups)
+
+    def label(self, name: str) -> str:
+        if len(self.groups) == 1:
+            return next(iter(self.groups))
+        return name.split(".", 1)[0]
+
+    def init(self, params: Mapping[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+        """The momentum traces, zeros like the parameters."""
+        return {n: torch.zeros_like(p, memory_format=torch.preserve_format)
+                for n, p in params.items()}
+
+    @torch.no_grad()
+    def update(self, grads: Mapping[str, Optional[torch.Tensor]],
+               opt_state: Dict[str, torch.Tensor],
+               params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One step of every group, in place. Returns each group's global
+        gradient norm before the clip."""
+        names: Dict[str, list] = {k: [] for k in self.groups}
+        for n in params:
+            names[self.label(n)].append(n)
+        norms = {}
+        for key, cfg in self.groups.items():
+            if not names[key]:
+                continue
+            p = [params[n] for n in names[key]]
+            g = [grads[n] if grads.get(n) is not None
+                 else torch.zeros_like(params[n]) for n in names[key]]
+            norms[key] = norm = global_norm(g)
+            keep = norm < cfg.clip
+            g = [torch.where(keep, t, t / norm * cfg.clip) for t in g]
+            if cfg.wd:
+                g = torch._foreach_add(g, p, alpha=cfg.wd)
+            trace = [opt_state[n] for n in names[key]]
+            torch._foreach_mul_(trace, cfg.momentum)
+            torch._foreach_add_(trace, g)
+            torch._foreach_add_(p, trace, alpha=-cfg.lr)
+        return norms
+
+
+def create_optimisers(*, enc_lr: float = 1e-3, dec_lr: float = 3e-3,
+                      enc_mom: float = 0.9, dec_mom: float = 0.9,
+                      enc_wd: float = 1e-5, dec_wd: float = 0.0,
+                      enc_grad_clip: float = 3.0,
+                      dec_grad_clip: float = 3.0) -> GroupSGD:
+    """The encoder and decoder groups of a ``Segmenter``'s parameters,
+    each with its own lr, momentum, weight decay and clip."""
+    return GroupSGD({
+        "encoder": SGDGroup(enc_lr, enc_mom, enc_wd, enc_grad_clip),
+        "decoder": SGDGroup(dec_lr, dec_mom, dec_wd, dec_grad_clip)})
+
+
+def sgd_chain(lr: float, *, momentum: float = 0.9, wd: float = 0.0,
+              clip: float) -> GroupSGD:
+    """One group over every parameter: the JAX search's stage-1 chain
+    ``optax.chain(clip_by_global_norm, add_decayed_weights, sgd)``."""
+    return GroupSGD({"all": SGDGroup(lr, momentum, wd, clip)})
+
+
+@torch.no_grad()
+def polyak_update(avg_params: Dict[str, torch.Tensor],
+                  params: Mapping[str, torch.Tensor], decay: float,
+                  step: int) -> Dict[str, torch.Tensor]:
+    """Polyak averaging in place: ``avg = d * avg + (1 - d) * p`` with
+    ``d = min(decay, step / (step + 1))`` (``step``: the count of steps
+    before this one), in f32 as the JAX package computes it: a running
+    mean over the first 1 / (1 - decay) steps."""
+    s = np.float32(step)
+    d = np.minimum(np.float32(decay), s / (s + np.float32(1.0)))
+    one_minus = np.float32(1.0) - d
+    avg = [avg_params[n] for n in params]
+    torch._foreach_mul_(avg, float(d))
+    torch._foreach_add_(avg, list(params.values()), alpha=float(one_minus))
+    return avg_params
