@@ -19,6 +19,32 @@ import torch
 
 from segtpu_torch.utils.helpers import resolve_device
 
+# The card's rates, for every bound and floor the port reports
+# (``chip_smoke.py`` and the scripts alike). H100 SXM data sheet:
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12        # f32 outside the tensor cores, an FMA two
+BF16_FLOP_PER_S = 989e12      # bf16 tensor cores, dense
+# f32 instructions (an fmaf, or a lone multiply, add or compare) a second:
+# one a lane a cycle, half the f32 FLOP rate
+F32_ISSUE_PER_S = F32_FLOP_PER_S / 2
+# fmaf chains measured on the card (exp_vpu_floor's peak, NVIDIA H100
+# 80GB HBM3 at 700 W): what a CUDA-core design that keeps the twins' f32
+# sum order reaches; the floors quote it beside the data sheet's rate
+F32_FMA_MEASURED_FLOP_PER_S = 59.5e12
+
+
+def bound_ms(nbytes, dot=0, f32=0, issue=0):
+    """(least ms, "bytes" or "operations") of a launch's work: the larger
+    of its bytes over the HBM rate and its operations, the dot products
+    over the bf16 tensor-core peak, the other f32 operations over the f32
+    peak and ``issue`` f32 instructions that fuse nothing over the issue
+    rate (separate pipes, so the largest of the three)."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": max(dot / BF16_FLOP_PER_S, f32 / F32_FLOP_PER_S,
+                               issue / F32_ISSUE_PER_S) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
+
 
 def cuda_ms(fn, iters=None, warmup: int = 3, window_ms: float = 25.0) -> float:
     """Milliseconds per call of ``fn`` on the card, by CUDA events around
