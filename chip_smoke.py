@@ -198,6 +198,27 @@ Phases, each a hard failure (non-zero exit) when it fails:
    phase 5, the masks against use_kernels=False by the near-tie rule
    (agreement printed; no floor). The control trains the same state and
    adds the hand-off's decoder calls to the checks that must fail.
+11. search: the NAS search (segtpu_torch.search.run_search) at the
+   published widths (MobileNet-v2 1.0, agg_size 48, the controller's
+   LSTM hidden and embedding 100), 21 classes (PASCAL VOC), 512x512
+   crops, SearchConfig's batch sizes (8, 8) and epochs (5, 1), cut to
+   SyntheticDataset(n=32) (no dataset is in the repository), 3
+   iterations of cvpr/PPO, then one resumed iteration, then 2 of
+   wacv/REINFORCE: every record "ok" with a finite reward in [0, 1] and
+   a genotype of the controller's family, controller.npz written, the
+   resume continuing at step 3 with the first three records kept;
+   seconds an iteration, stage 1 and stage 2 ms a step, the encoder
+   cache's ms (search._cache_taps over the meta-train crops, after a
+   warm-up pass), peak memory, whether native_io loaded. The controller
+   (micro spec, after two PPO updates on the CPU) against its CPU twin on
+   the same weights: evaluate's log-probs and entropies on the card's
+   samples within 1e-5, one PPO update's parameters within 1e-3 of the
+   CPU's own move, Adam's moments within 1e-4 of each leaf's max, the
+   baseline within 1e-7 (CTRL_TOL). The CLI in process: search
+   --synthetic --num-iters 1 at 512x512, train --synthetic --num-epochs 1
+   at 128x128, and infer on a seeded 1024x2048 .npy frame with a torch
+   checkpoint of make_model's arch0: PATH_LAUNCHES, and the mask bit-equal
+   to engine.Segmenter.predict on the same weights.
 
 Prints the kernels JSON line (each row also with its launches on
 template0's path) and the card's name and power limit, then, last,
@@ -223,16 +244,21 @@ bf16 and f32 on G2's logits made before the rounding, and phase 8's
 unsharded rows; the decoder calls of phase 10's hand-off; phase 9's
 dw_tap_sum cases and forms, its output rounded likewise, and the fused
 classifier tail's, the last byte of its mask with its low bit flipped)
-run on it.
+run on it. Phase 11's checks join them: the controller's card values
+(log-probs, entropies, the update's parameters, Adam's moments and the
+baseline) rounded likewise before they are held to the CPU's, and the
+CLI's infer run under the rounding against the engine's predict run
+without it.
 The checks that hold kernels against kernels (sharded or data mode
-against the unsharded engine) and the card against the CPU are not in
-it: the rounding moves both sides alike.
+against the unsharded engine) and phase 10's card against the CPU are
+not in it: the rounding moves both sides alike.
 It prints how many fail and exits 0 when every one of them fails.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -2673,6 +2699,7 @@ def phase_control(torch, bits: int) -> dict:
             del calls, sh, ref_sh
     res.update(template_control(torch, frames, bits))
     res.update(handoff_control(torch, frames, bits))
+    res.update(search_control(torch, bits))
     return res
 
 
@@ -3196,6 +3223,319 @@ def handoff_control(torch, frames, bits: int) -> dict:
     return res
 
 
+# ------------------------------------------------------------------ search
+#
+# Phase 11: the NAS search on the port, segtpu_torch.search.run_search, at
+# the published widths (MobileNet-v2 1.0, agg_size 48, the controller's
+# LSTM hidden and embedding 100), 21 classes (PASCAL VOC, the CVPR'19
+# search's data), the train phase's 512x512 crop and SearchConfig's batch
+# sizes (8, 8) and epochs (5, 1); cut to SyntheticDataset(n=32), 3
+# iterations of cvpr/PPO then one resumed, and 2 of wacv/REINFORCE.
+
+SEARCH_K = 21
+SEARCH_CROP = (512, 512)
+SEARCH_SEED = 42
+SEARCH_ITERS = {"cvpr": 3, "wacv": 2}
+SEARCH_CUTS = ("SyntheticDataset(n=32): no dataset is in the repository",
+               "num_iters 3 with cvpr/PPO, then one resumed iteration",
+               "2 iterations with wacv/REINFORCE")
+# card against CPU on the same controller weights: evaluate's log-probs
+# and entropies (max |d|); one PPO update's parameters as a share of the
+# CPU's own move, Adam's moments as a share of each leaf's max |.|, the
+# EMA baseline (max |d|)
+CTRL_TOL = {"logprob": 1e-5, "entropy": 1e-5, "param": 1e-3, "mu": 1e-4,
+            "nu": 1e-4, "baseline": 1e-7}
+# the controller's CPU updates before the parity (Adam's moments not zero)
+# and the reward of the update held card against CPU
+CTRL_WARM_REWARDS, CTRL_REWARD = (0.3, 0.1), 0.37
+# the CLI's train at a small crop, as the contract asks
+CLI_TRAIN_CROP = 128
+
+
+def search_config(snapshot_dir, **kw):
+    from segtpu_torch.config import SearchConfig
+    return SearchConfig(**{**dict(
+        synthetic=True, num_classes=SEARCH_K, crop_size=SEARCH_CROP,
+        seed=SEARCH_SEED, snapshot_dir=snapshot_dir), **kw})
+
+
+def coarse_values(torch, bits):
+    """The control's rounding of the card's controller values: each to
+    ``bits`` significant bits (identity when ``bits`` is None)."""
+    def run(t):
+        if bits is None:
+            return t
+        m, e = torch.frexp(t.float())
+        return torch.ldexp(torch.round(m * 2.0 ** bits) / 2.0 ** bits, e)
+    return run
+
+
+def _leaves(tree):
+    return ([x for v in tree.values() for x in _leaves(v)]
+            if isinstance(tree, dict) else [tree])
+
+
+def controller_checks(torch, bits=None):
+    """[(what, error, limit)]: the controller's card against its CPU twin
+    on the same weights (the micro spec at the published sizes, after
+    CTRL_WARM_REWARDS' PPO updates on the CPU): evaluate on actions the
+    card sampled (which stay inside their masks), and one PPO update from
+    that state; the card's values rounded by ``coarse_values(bits)``."""
+    from segtpu_torch.rl import agent as ag, controller as ct
+    from segtpu_torch.utils.solvers import AdamState, tree_map
+    cfg = search_config("")
+    spec = ct.MicroControllerSpec(hidden_size=cfg.lstm_hidden_size,
+                                  emb_size=cfg.op_size)
+
+    def make(device):
+        return ag.create_agent(
+            torch.Generator().manual_seed(SEARCH_SEED), spec=spec,
+            algo="ppo", lr=cfg.ctrl_lr, baseline_decay=cfg.ctrl_baseline_decay,
+            entropy_coef=cfg.ctrl_entropy_coef, device=device)
+
+    cpu = make("cpu")
+    gen = torch.Generator().manual_seed(1)
+    for r in CTRL_WARM_REWARDS:
+        _, a, lp, _ = ag.sample_genotype(cpu, gen)
+        cpu = ag.train_agent(cpu, a, r, old_logprobs=lp)
+    st = cpu.state
+    to = lambda t: t.cuda()  # noqa: E731
+    card = make("cuda")._replace(state=ag.AgentState(
+        tree_map(to, st.params), AdamState(st.opt_state.count,
+                                           tree_map(to, st.opt_state.mu),
+                                           tree_map(to, st.opt_state.nu)),
+        st.baseline.cuda()))
+    _, actions, logprobs, _ = ag.sample_genotype(
+        card, torch.Generator(device="cuda").manual_seed(2))
+    a = actions.cpu().numpy()
+    check(((a >= 0) & (a < np.asarray(spec.slot_sizes))).all(),
+          f"the card's sample left its masks: {a}")
+    rnd = coarse_values(torch, bits)
+    lp_g, ent_g = ct.evaluate(card.state.params, spec, actions)
+    lp_c, ent_c = ct.evaluate(st.params, spec, actions.cpu())
+    out = [("controller evaluate log-probs, card vs CPU",
+            (rnd(lp_g).cpu() - lp_c).abs().max().item(), CTRL_TOL["logprob"]),
+           ("controller evaluate entropies, card vs CPU",
+            (rnd(ent_g).cpu() - ent_c).abs().max().item(),
+            CTRL_TOL["entropy"])]
+    new_g = ag.train_agent(card, actions, CTRL_REWARD,
+                           old_logprobs=logprobs).state
+    new_c = ag.train_agent(cpu, actions.cpu(), CTRL_REWARD,
+                           old_logprobs=logprobs.cpu()).state
+
+    def worst(got, want):
+        return max((rnd(g).cpu() - w).abs().max().item()
+                   for g, w in zip(_leaves(got), _leaves(want)))
+
+    move = max((n - o).abs().max().item()
+               for n, o in zip(_leaves(new_c.params), _leaves(st.params)))
+    out.append(("controller PPO update parameters, card vs CPU",
+                worst(new_g.params, new_c.params), CTRL_TOL["param"] * move))
+    for m in ("mu", "nu"):
+        got, want = getattr(new_g.opt_state, m), getattr(new_c.opt_state, m)
+        top = max(w.abs().max().item() for w in _leaves(want))
+        out.append((f"controller PPO update Adam {m}, card vs CPU",
+                    worst(got, want), CTRL_TOL[m] * top))
+    out.append(("controller PPO update baseline, card vs CPU",
+                abs(rnd(new_g.baseline).item() - new_c.baseline.item()),
+                CTRL_TOL["baseline"]))
+    check(new_g.opt_state.count == new_c.opt_state.count,
+          "Adam's step counts differ")
+    return out
+
+
+def cli_infer(torch, tmp, bits=None):
+    """(mask of ``main_search infer`` on a seeded uint8 1024x2048 .npy
+    frame and a torch checkpoint of make_model's arch0 (K = 19), the
+    engine's predict on the same weights, the launches of the CLI's run).
+    With ``bits`` the CLI runs inside ``coarse_decoder(bits)``."""
+    from segtpu_torch import main_search
+    from segtpu_torch.convert.torch_import import load_segmenter_checkpoint
+    from segtpu_torch.engine import Segmenter
+    from segtpu_torch.models import ARCHS
+    ckpt = os.path.join(tmp, "arch0.ckpt")
+    frame = os.path.join(tmp, "frame.npy")
+    out = os.path.join(tmp, "frame_mask.npy")
+    torch.save(make_model(torch).state_dict(), ckpt)
+    np.save(frame, np.random.default_rng(7).integers(0, 256, (H, W, 3),
+                                                     dtype=np.uint8))
+    want = Segmenter(load_segmenter_checkpoint(
+        ckpt, ARCHS["arch0"], K, device="cpu"), device="cuda").predict(
+        np.load(frame))
+    ctx = (coarse_decoder(torch, bits) if bits is not None
+           else contextlib.nullcontext())
+    reset_counts()
+    with ctx:
+        main_search.main(["infer", "--image", frame, "--ckpt", ckpt,
+                          "--num-classes", str(K), "--output", out])
+    return np.load(out), want, read_counts()
+
+
+def check_records(saver, n, family, what):
+    from segtpu_torch.models.families import infer_family
+    recs = saver.history
+    check(len(recs) == n, f"{what}: {len(recs)} records, expected {n}")
+    for r in recs:
+        check(r["status"] == "ok", f"{what}: step {r['step']} {r['status']}")
+        check(np.isfinite(r["reward"]) and 0.0 <= r["reward"] <= 1.0,
+              f"{what}: step {r['step']} reward {r['reward']}")
+        check(infer_family(r["genotype"]).name == family,
+              f"{what}: step {r['step']} genotype {r['genotype']}")
+
+
+def run_timed_search(torch, cfg):
+    """(saver, seconds, peak bytes) of run_search(cfg) on the card."""
+    from segtpu_torch.search import run_search
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    saver = run_search(cfg, device="cuda")
+    torch.cuda.synchronize()
+    return (saver, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated())
+
+
+def encoder_cache_ms(torch, cfg):
+    """ms of search._cache_taps over run_search's meta-train cache loader
+    (the encoder's taps of every fixed crop, once per search), after one
+    warm-up pass; and the cached taps' bytes."""
+    from segtpu_torch import search
+    from segtpu_torch.data.datasets import BatchLoader, create_loaders
+    from segtpu_torch.models.encoders import MobileNetV2
+    ds = search._make_dataset(cfg)
+    train, _ = create_loaders(ds, batch_size=cfg.batch_size[1],
+                              crop=cfg.crop_size,
+                              meta_train_prct=cfg.meta_train_prct,
+                              seed=cfg.seed)
+    loader = BatchLoader(ds, batch_size=cfg.batch_size[0],
+                         crop=cfg.crop_size, train=False, seed=cfg.seed,
+                         indices=train.indices)
+    enc = MobileNetV2(generator=torch.Generator().manual_seed(0)).cuda()
+    search._cache_taps(enc, loader)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cached = search._cache_taps(enc, loader)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(t.numel() * t.element_size()
+                 for b in cached for t in b["taps"])
+    return ms, len(cached), nbytes
+
+
+def phase_search(torch):
+    """Phase 11: the search at the published widths on the card, its
+    resume, the controller against the CPU, the CLI. Returns its numbers
+    for the JSON."""
+    import tempfile
+    from segtpu_torch import main_search
+    from segtpu_torch.data import native_io
+    torch.cuda.empty_cache()
+    gpu = gpu_line()
+    for cut in SEARCH_CUTS:
+        print(f"[search] cut: {cut}")
+    print(f"[search] native_io loaded: {native_io.available()} "
+          f"({native_io._LIB_PATH}) on {gpu}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    res = {"gpu": gpu, "cuts": list(SEARCH_CUTS),
+           "native_io": native_io.available()}
+    with tempfile.TemporaryDirectory(dir="chiprun_out") as tmp:
+        cfg = search_config(os.path.join(tmp, "cvpr"),
+                            num_iters=SEARCH_ITERS["cvpr"],
+                            ctrl_version="cvpr", ctrl_algo="ppo")
+        print(f"[search] cvpr/PPO: {cfg}")
+        saver, secs, peak = run_timed_search(torch, cfg)
+        check_records(saver, SEARCH_ITERS["cvpr"], "micro", "cvpr/PPO")
+        check(os.path.exists(os.path.join(cfg.snapshot_dir,
+                                          "controller.npz")),
+              "controller.npz not written")
+        recs = saver.history
+        resumed, _, _ = run_timed_search(torch, dataclasses.replace(
+            cfg, num_iters=cfg.num_iters + 1, resume=True))
+        check([r["step"] for r in resumed.history]
+              == list(range(cfg.num_iters + 1))
+              and resumed.history[:cfg.num_iters] == recs,
+              f"resume did not continue at step {cfg.num_iters}: "
+              f"{[r['step'] for r in resumed.history]}")
+        wcfg = search_config(os.path.join(tmp, "wacv"),
+                             num_iters=SEARCH_ITERS["wacv"],
+                             ctrl_version="wacv", ctrl_algo="reinforce")
+        wsaver, wsecs, wpeak = run_timed_search(torch, wcfg)
+        check_records(wsaver, SEARCH_ITERS["wacv"], "template",
+                      "wacv/REINFORCE")
+        for name, rs, total, pk in (("cvpr/PPO", recs, secs, peak),
+                                    ("cvpr/PPO resumed",
+                                     resumed.history[cfg.num_iters:], None,
+                                     None),
+                                    ("wacv/REINFORCE", wsaver.history, wsecs,
+                                     wpeak)):
+            for r in rs:
+                print(f"[search] {name} step {r['step']}: {r['seconds']} s "
+                      f"(stage 1 {r['stage1_ms']:.2f} ms a step, stage 2 "
+                      f"{r['stage2_ms']:.2f} ms a step), reward "
+                      f"{r['reward']!r}, mIoUs {r['miou1']!r} "
+                      f"{r['miou2']!r}, {r['genotype']} on {gpu}")
+            if total is not None:
+                print(f"[search] {name}: {len(rs)} iterations in "
+                      f"{total:.2f} s with the encoder cache, peak "
+                      f"{pk / 2 ** 30:.3f} GiB on {gpu}")
+        res.update(cvpr=recs, cvpr_resumed=resumed.history[cfg.num_iters:],
+                   wacv=wsaver.history, cvpr_s=secs, wacv_s=wsecs,
+                   cvpr_peak_bytes=peak, wacv_peak_bytes=wpeak)
+        ms, n, nbytes = encoder_cache_ms(torch, cfg)
+        print(f"[search] encoder cache: {n} batches of {cfg.batch_size[0]}x"
+              f"{cfg.crop_size[0]}x{cfg.crop_size[1]} in {ms:.2f} ms, "
+              f"{nbytes / 2 ** 20:.1f} MiB of taps on {gpu}")
+        res.update(cache_ms=ms, cache_batches=n, cache_bytes=nbytes)
+        ctrl = controller_checks(torch)
+        for what, err, limit in ctrl:
+            print(f"[search] {what}: {err!r} (limit {limit!r}) on {gpu}")
+            check(err <= limit, f"{what}: {err} > {limit}")
+        res["controller"] = {w: [e, lim] for w, e, lim in ctrl}
+        main_search.main(["search", "--synthetic", "--num-iters", "1",
+                          "--crop-size", *map(str, SEARCH_CROP),
+                          "--snapshot-dir", os.path.join(tmp, "cli_search")])
+        check(os.path.exists(os.path.join(tmp, "cli_search",
+                                          "controller.npz")),
+              "the CLI's search wrote no snapshot")
+        main_search.main(["train", "--synthetic", "--num-epochs", "1",
+                          "--crop-size", str(CLI_TRAIN_CROP),
+                          str(CLI_TRAIN_CROP), "--batch-size", "8",
+                          "--snapshot-dir", os.path.join(tmp, "cli_train")])
+        check(os.path.exists(os.path.join(tmp, "cli_train",
+                                          "best_params.npz")),
+              "the CLI's train wrote no checkpoint")
+        got, want, launches = cli_infer(torch, tmp)
+        print(f"[search] CLI infer 1x{H}x{W}: launches {launches}, classes "
+              f"{np.bincount(got.ravel(), minlength=K).tolist()}")
+        check(launches == PATH_LAUNCHES,
+              f"CLI infer launches {launches}, expected {PATH_LAUNCHES}")
+        check(len(np.unique(want)) > 1, "the infer mask is one class")
+        check(np.array_equal(got, want),
+              f"CLI infer mask differs from Segmenter.predict on "
+              f"{int((got != want).sum())} pixels")
+        res["cli_infer_launches"] = launches
+    return res
+
+
+def search_control(torch, bits: int) -> dict:
+    """The control's search checks: the controller's card values rounded
+    to ``bits`` bits against the CPU's, and the CLI's infer inside
+    ``coarse_decoder(bits)`` against the engine's predict outside it.
+    Returns {check: failed}."""
+    import tempfile
+    res = {}
+    for what, err, limit in controller_checks(torch, bits):
+        res[what] = must_fail(what, lambda: check(
+            err <= limit, f"{what}: {err} > {limit}"))
+    os.makedirs("chiprun_out", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="chiprun_out") as tmp:
+        got, want, _ = cli_infer(torch, tmp, bits)
+    res["CLI infer mask vs Segmenter.predict"] = must_fail(
+        "CLI infer mask", lambda: check(np.array_equal(got, want),
+                                        "CLI infer mask differs"))
+    return res
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3286,6 +3626,7 @@ def main() -> None:
             **({"floor_ms": r["floor_ms"], "floor_by": r["floor_by"]}
                if "floor_ms" in r else {})})
     train = phase_train(torch, frames)
+    search = phase_search(torch)
     if "--profile" in sys.argv[1:]:
         profile(torch, seg, seg_t, frames)
         train["profile"] = profile_train(torch)
@@ -3302,7 +3643,8 @@ def main() -> None:
                    "template0": {
                        "launches": t_launches, "mask_agreement": t_rate,
                        "space_launches": t_space_launches},
-                   "experiments": experiments, "train": train},
+                   "experiments": experiments, "train": train,
+                   "search": search},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -21,6 +21,11 @@ buffers as numpy pytrees in ``segmenter_init``'s layout (nested dicts,
 lists where the keys are indices, conv kernels OIHW -> HWIO);
 ``to_jax_tree`` does the same for any name -> tensor mapping, such as
 gradients or Polyak averages.
+
+``load_jax_controller(params)`` carries the search controller's
+``controller_init`` tree (numpy) into the port's controller tree of f32
+tensors, names and shapes as they are (its matrices are products'
+operands, not conv kernels); ``controller_to_jax`` is the way back.
 """
 
 from __future__ import annotations
@@ -109,3 +114,33 @@ def to_jax_params(model: torch.nn.Module):
     layout: its parameters, and its BatchNorm running stats."""
     return (to_jax_tree(dict(model.named_parameters())),
             to_jax_tree(dict(model.named_buffers())))
+
+
+_CONTROLLER_KEYS = {"embed": None, "slot_embed": None,
+                    "lstm": ["b", "wh", "wx"], "head": ["b", "w"]}
+
+
+def load_jax_controller(params, *, device="cpu"):
+    """A JAX controller tree (``embed``, ``slot_embed``, ``lstm.{wx,wh,b}``,
+    ``head.{w,b}``; numpy leaves) -> the port's tree of f32 tensors on
+    ``device``. A missing or extra leaf raises."""
+    keys = {k: sorted(v) if isinstance(v, dict) else None
+            for k, v in params.items()}
+    if keys != _CONTROLLER_KEYS:
+        raise ValueError(f"controller tree {keys}, expected "
+                         f"{_CONTROLLER_KEYS}")
+
+    def tensors(tree):
+        if isinstance(tree, dict):
+            return {k: tensors(v) for k, v in tree.items()}
+        return torch.tensor(np.asarray(tree), dtype=torch.float32,
+                            device=device)
+
+    return tensors(params)
+
+
+def controller_to_jax(params):
+    """The port's controller tree -> numpy, in the JAX package's layout."""
+    if isinstance(params, dict):
+        return {k: controller_to_jax(v) for k, v in params.items()}
+    return np.array(params.detach().float().cpu())

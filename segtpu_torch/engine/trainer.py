@@ -22,7 +22,8 @@ are XLA's: no Pallas kernel is on its train or eval path.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import re
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -232,29 +233,52 @@ def make_decoder_train_step(genotype, optimizer, *, num_classes: int,
     return step
 
 
+_REP = re.compile(r"\.reps\.(\d+)\.")
+
+
+def decoder_dims(params, prefix: str = "decoder.") -> Tuple[int, int]:
+    """(agg_size, repeats) of the decoder whose tensors ``params`` (a
+    name -> tensor mapping) holds under ``prefix``: the width of its
+    first adapt conv, and one more than the largest separable-conv repeat
+    index (1 where no op of the genotype repeats)."""
+    agg = params[f"{prefix}adapt.0.w"].shape[0]
+    reps = [int(m.group(1)) for n in params if n.startswith(prefix)
+            for m in [_REP.search(n)] if m]
+    return int(agg), 1 + max(reps, default=0)
+
+
 def make_eval_step(genotype, *, num_classes: int):
     """Eval step: ``step(params, stats, batch)`` -> the [K, K] confusion
     matrix on the parameters' device. ``params`` and ``stats`` are name
-    -> tensor mappings (``eval_params_stats``); a ``Segmenter`` of
-    ``genotype`` without heads (one repeat of each separable conv, as
-    ``run_training`` builds it), made once on the CPU, gives their
-    structure, and the step runs it on them with
-    ``torch.func.functional_call``: logits upsampled in f32 to the
-    labels' size, argmax (ties to the lower class), confusion matrix.
-    Entries the skeleton lacks (training's aux heads) are not read."""
+    -> tensor mappings (``eval_params_stats``) of a ``Segmenter`` of
+    ``genotype`` at any decoder width and repeat count: a skeleton
+    ``Segmenter`` without heads at the ``decoder_dims`` they imply, made
+    on the CPU once for each, gives their structure, and the step runs it
+    on them with ``torch.func.functional_call``: logits upsampled in f32
+    to the labels' size, argmax (ties to the lower class), confusion
+    matrix. Entries the skeleton lacks (training's aux heads) are not
+    read."""
     from segtpu_torch.models.segmenter import Segmenter
-    skeleton = Segmenter(genotype, num_classes,
-                         generator=torch.Generator().manual_seed(0))
-    keys = list(skeleton.state_dict().keys())
+    skeletons = {}
+
+    def skeleton(params):
+        dims = decoder_dims(params)
+        if dims not in skeletons:
+            model = Segmenter(genotype, num_classes, agg_size=dims[0],
+                              repeats=dims[1],
+                              generator=torch.Generator().manual_seed(0))
+            skeletons[dims] = model, list(model.state_dict().keys())
+        return skeletons[dims]
 
     @torch.no_grad()
     def step(params, stats, batch):
+        model, keys = skeleton(params)
         merged = {**params, **stats}
         tensors = {k: merged[k] for k in keys}
         dev = tensors[keys[0]].device
         label = _labels_to(batch["label"], dev)
         logits = torch.func.functional_call(
-            skeleton, tensors, (images_to(batch["image"], dev),))
+            model, tensors, (images_to(batch["image"], dev),))
         logits = resize_bilinear(logits, label.shape[-2:],
                                  compute_dtype=torch.float32)
         pred = torch.argmax(logits.float(), dim=1)

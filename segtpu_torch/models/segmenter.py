@@ -41,6 +41,20 @@ class Segmenter(nn.Module):
                                  generator=generator)
         self.eval()
 
+    @classmethod
+    def from_parts(cls, genotype, num_classes: int, encoder: nn.Module,
+                   decoder: nn.Module) -> "Segmenter":
+        """A ``Segmenter`` over ``encoder`` and ``decoder`` themselves (not
+        copies), in eval mode: the search's stage 2 goes on from the
+        decoder stage 1 trained."""
+        model = cls.__new__(cls)
+        nn.Module.__init__(model)
+        model.genotype = genotype
+        model.num_classes = num_classes
+        model.encoder = encoder
+        model.decoder = decoder
+        return model.eval()
+
     def forward(self, x, *, input_format: str = "nhwc3",
                 align_corners: bool = True, with_aux: bool = False,
                 freeze_encoder: bool = False):

@@ -16,7 +16,7 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,11 +35,12 @@ log = logging.getLogger("segtpu_torch.train")
 
 @dataclasses.dataclass
 class TrainConfig:
-    """``run_training``'s settings. ``crop_size`` and ``batch_size`` are
-    what the caller's loaders are to give: ``run_training`` takes its
-    batches as they come."""
+    """``run_training``'s settings. ``crop_size``, ``shorter_side`` (the
+    scale jitter's base) and ``batch_size`` are what the caller's loaders
+    are to use: ``run_training`` takes its batches as they come."""
     num_classes: int = 21
     crop_size: Tuple[int, int] = (512, 512)
+    shorter_side: Optional[int] = 512
     batch_size: int = 16
     num_epochs: int = 100
     enc_lr: float = 1e-3

@@ -15,12 +15,15 @@ A parameter without a gradient (a frozen encoder's) steps on a zero
 gradient, as optax steps on the zeros ``stop_gradient`` gives: its
 weight decay and momentum still move it. Parameters and state are
 updated in place.
+
+``Adam`` is ``optax.adam(lr)``, the search controller's optimizer, on
+nested dicts of tensors, without updating in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -122,3 +125,59 @@ def polyak_update(avg_params: Dict[str, torch.Tensor],
     torch._foreach_mul_(avg, float(d))
     torch._foreach_add_(avg, list(params.values()), alpha=float(one_minus))
     return avg_params
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts (``rest``: trees of the
+    same structure), as a new tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+class AdamState(NamedTuple):
+    count: int  # steps taken
+    mu: Any     # first moments, a tree like the parameters
+    nu: Any     # second moments
+
+
+class Adam:
+    """``optax.adam(lr)`` (b1 0.9, b2 0.999, eps 1e-8 outside the square
+    root, eps_root 0), written out rather than ``torch.optim.Adam`` so
+    that its state is a tree like the parameters and a step returns new
+    tensors, as optax's does. optax's arithmetic, in f32 (the bias
+    corrections ``1 - decay ** count`` too):
+
+        mu = (1 - b1) * g + b1 * mu
+        nu = (1 - b2) * g * g + b2 * nu
+        count += 1
+        p += -lr * (mu / (1 - b1 ** count)) / (sqrt(nu / (1 - b2 ** count))
+                                                + eps)
+    """
+
+    def __init__(self, lr: float, *, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+
+    def init(self, params) -> AdamState:
+        zeros = lambda p: torch.zeros_like(p)  # noqa: E731
+        return AdamState(0, tree_map(zeros, params), tree_map(zeros, params))
+
+    @torch.no_grad()
+    def update(self, grads, state: AdamState, params):
+        """-> (new parameters, new state); neither input is changed."""
+        b1, b2 = self.b1, self.b2
+        count = state.count + 1
+        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
+        nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads,
+                      state.nu)
+        one, n = np.float32(1.0), np.float32(count)
+        c1 = float(one - np.float32(b1) ** n)
+        c2 = float(one - np.float32(b2) ** n)
+
+        def step(p, m, v):
+            return p + (-self.lr) * ((m / c1) / (torch.sqrt(v / c2)
+                                                 + self.eps))
+
+        return tree_map(step, params, mu, nu), AdamState(count, mu, nu)
