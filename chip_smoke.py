@@ -202,7 +202,8 @@ Phases, each a hard failure (non-zero exit) when it fails:
    published widths (MobileNet-v2 1.0, agg_size 48, the controller's
    LSTM hidden and embedding 100), 21 classes (PASCAL VOC), 512x512
    crops, SearchConfig's batch sizes (8, 8) and epochs (5, 1), cut to
-   SyntheticDataset(n=32) (no dataset is in the repository), 3
+   SyntheticDataset(n=32) (the repository's one dataset, phase 12's, is
+   5 classes of 64x64 images, not 21 at 512x512), 3
    iterations of cvpr/PPO, then one resumed iteration, then 2 of
    wacv/REINFORCE: every record "ok" with a finite reward in [0, 1] and
    a genotype of the controller's family, controller.npz written, the
@@ -219,6 +220,29 @@ Phases, each a hard failure (non-zero exit) when it fails:
    at 128x128, and infer on a seeded 1024x2048 .npy frame with a torch
    checkpoint of make_model's arch0: PATH_LAUNCHES, and the mask bit-equal
    to engine.Segmenter.predict on the same weights.
+12. supernet: the population search (segtpu_torch.supernet, the mesh's
+   population steps, parallel.fleet) at the settings of the repo's
+   recorded supernet search (artifacts/search_v2/summary.json "proxy":
+   population 8, 64x64 crops, batch (8, 8), epochs (16, 0)) on its
+   dataset (artifacts/search_v2/data, 24 train images, 5 classes, its
+   PNGs read by read_png), agg_size 48, 3 blocks, 3 cell nodes, cut to 3
+   rounds of cvpr/PPO, then 2 of wacv/REINFORCE at population 4
+   (SUPERNET_CUTS): seconds a round, stage-1 ms a population step, peak
+   memory. Checks: (a) K x rounds records, "mode" supernet, rewards in
+   [0, 1], the snapshot at step K x rounds with the last record's
+   baseline; (b) one vectorised K = 8 population step against the 8
+   samples' sequential steps (make_sequential_train_step), TF32 off, and
+   (c) the step and eval on make_mesh(4, 1) of the one card against the
+   unsharded ones: losses and every state leaf within POP_TOL of
+   max(|leaf|, POP_FLOOR), confusion matrices within CM_SHARE of their
+   sum; (d) one round of run_fleet_search on [cuda:0] * 4 at
+   FLEET_EPOCHS against search.proxy_train one genotype after another,
+   run twice (the card against itself printed), rewards within
+   FLEET_TOL; (e) measure_proxy_fidelity on tests/test_supernet.py's real
+   and degenerate genotypes at its config: both proxies rank the real
+   one first, rho 1. Then the CLI: search --synthetic --supernet 8 and
+   --fleet, one round each, and --supernet 8 --pop-devices 4, which must
+   raise make_mesh's ValueError on fewer than four cards.
 
 Prints the kernels JSON line (each row also with its launches on
 template0's path) and the card's name and power limit, then, last,
@@ -248,7 +272,11 @@ run on it. Phase 11's checks join them: the controller's card values
 (log-probs, entropies, the update's parameters, Adam's moments and the
 baseline) rounded likewise before they are held to the CPU's, and the
 CLI's infer run under the rounding against the engine's predict run
-without it.
+without it. Phase 12's (a)-(e) join them (supernet_control): (a) on one
+round of each run with the snapshot's baseline rounded, (b) and (c) with
+the vectorised and the sharded step's outputs rounded, (d) with the
+fleet's workers training from the next worker's seed, (e) with the
+supernet's masks rolled to the other genotype.
 The checks that hold kernels against kernels (sharded or data mode
 against the unsharded engine) and phase 10's card against the CPU are
 not in it: the rounding moves both sides alike.
@@ -2700,6 +2728,7 @@ def phase_control(torch, bits: int) -> dict:
     res.update(template_control(torch, frames, bits))
     res.update(handoff_control(torch, frames, bits))
     res.update(search_control(torch, bits))
+    res.update(supernet_control(torch, bits))
     return res
 
 
@@ -3236,7 +3265,10 @@ SEARCH_K = 21
 SEARCH_CROP = (512, 512)
 SEARCH_SEED = 42
 SEARCH_ITERS = {"cvpr": 3, "wacv": 2}
-SEARCH_CUTS = ("SyntheticDataset(n=32): no dataset is in the repository",
+SEARCH_CUTS = ("SyntheticDataset(n=32): 21 classes at 512x512 crops, the "
+               "published task's shapes; the repository's one dataset, "
+               "artifacts/search_v2/data (phase supernet's), holds 32 "
+               "64x64 images of 5 classes",
                "num_iters 3 with cvpr/PPO, then one resumed iteration",
                "2 iterations with wacv/REINFORCE")
 # card against CPU on the same controller weights: evaluate's log-probs
@@ -3536,6 +3568,511 @@ def search_control(torch, bits: int) -> dict:
     return res
 
 
+# ------------------------------------------------------------------ supernet
+#
+# Phase 12: the population search on the port (segtpu_torch.supernet, the
+# mesh's population steps, parallel.fleet) at the settings of the repo's
+# recorded supernet search (artifacts/search_v2/summary.json "proxy":
+# population 8, 64x64 crops, batch (8, 8), epochs (16, 0)) on its dataset
+# (artifacts/search_v2/data), agg_size 48, 3 blocks, 3 cell nodes.
+
+SUPERNET_DATA = os.path.join("artifacts", "search_v2", "data")
+SUPERNET_PROXY = dict(crop_size=(64, 64), batch_size=(8, 8),
+                      num_epochs=(16, 0))
+SUPERNET_CLASSES = 5      # scripts/run_search_demo.py:27; checked on the masks
+SUPERNET_SEED = 0
+# (ctrl_version, ctrl_algo, population, rounds)
+SUPERNET_RUNS = (("cvpr", "ppo", 8, 3), ("wacv", "reinforce", 4, 2))
+SUPERNET_CUTS = (
+    "3 rounds of cvpr/PPO at population 8 (the recorded search ran 100)",
+    "then 2 rounds of wacv/REINFORCE at population 4",
+    "the encoder random from the seed (the recorded search pre-trained "
+    "arch0's on the task first)",
+    "the dataset's PNGs read by read_png into .npy (no PIL, no native_io "
+    "on the card)")
+# (b) the vectorised population step against the samples' sequential
+# steps, (c) the 4-shard step against the unsharded: losses, and every
+# parameter, statistic, trace and Polyak leaf, within POP_TOL of
+# max(its max |.|, POP_FLOOR); (c) the confusion matrices within CM_SHARE
+# of their sum (tests/test_parallel.py:256-261)
+POP_TOL, POP_FLOOR = 1e-4, 1e-2
+POP_SHARDS = 4
+CM_SHARE = 0.002
+# (d) the fleet's rewards against proxy_train one genotype after another,
+# at FLEET_EPOCHS (the phase's 16 stage-1 epochs cut to 4: the check is
+# placement and seeds, not the proxy); the card's proxy trainings are not
+# bit-reproducible (the same genotypes and seeds run twice one after
+# another moved a reward by 4.2e-3 at 16 epochs on an H100 80GB HBM3 at
+# 700 W), so FLEET_TOL holds a reward in [0, 1] to about twice that
+FLEET_WORKERS = 4
+FLEET_EPOCHS = (4, 0)
+FLEET_TOL = 1e-2
+# (e) tests/test_supernet.py:239-250: its genotypes and its config
+FIDELITY_REAL = [[3, [1, 1, 4, 6], [2, 2, 6, 5], [3, 0, 7, 8]],
+                 [[0, 0], [1, 0], [3, 4]]]
+FIDELITY_DEGEN = [[10, [1, 1, 10, 10], [2, 2, 10, 10], [3, 3, 10, 10]],
+                  [[0, 1], [2, 3], [1, 2]]]
+FIDELITY_CFG = dict(synthetic=True, num_classes=5, crop_size=(64, 64),
+                    batch_size=(8, 8), num_epochs=(10, 0), seed=0)
+
+
+def read_png(path):
+    """An 8-bit, non-interlaced grey or RGB PNG -> uint8 [H, W(, 3)]: the
+    IDAT stream inflated by zlib and each row's filter undone."""
+    import struct
+    import zlib
+    b = open(path, "rb").read()
+    check(b[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is not a PNG")
+    i, idat = 8, []
+    while i < len(b):
+        n, t = struct.unpack(">I4s", b[i:i + 8])
+        if t == b"IHDR":
+            w, h, depth, ctype, _, _, lace = struct.unpack(
+                ">IIBBBBB", b[i + 8:i + 21])
+        elif t == b"IDAT":
+            idat.append(b[i + 8:i + 8 + n])
+        i += 12 + n
+    check(depth == 8 and ctype in (0, 2) and lace == 0,
+          f"{path}: depth {depth}, colour type {ctype}, interlace {lace}")
+    c = 3 if ctype == 2 else 1
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)),
+                        np.uint8).reshape(h, 1 + w * c)
+    out = np.zeros((h, w * c), np.int32)
+    for y in range(h):
+        f, x = raw[y, 0], raw[y, 1:].astype(np.int32)
+        up = out[y - 1] if y else np.zeros(w * c, np.int32)
+        if f == 0:
+            out[y] = x
+        elif f == 2:
+            out[y] = (x + up) & 255
+        else:
+            row = out[y]
+            for j in range(w * c):
+                a = row[j - c] if j >= c else 0
+                ul = up[j - c] if j >= c else 0
+                if f == 1:
+                    pred = a
+                elif f == 3:
+                    pred = (a + up[j]) >> 1
+                else:       # Paeth
+                    pa, pb, pc = (abs(up[j] - ul), abs(a - ul),
+                                  abs(a + up[j] - 2 * ul))
+                    pred = (a if pa <= pb and pa <= pc
+                            else up[j] if pb <= pc else ul)
+                row[j] = (x[j] + pred) & 255
+    out = out.astype(np.uint8).reshape(h, w, c)
+    return out[..., 0] if c == 1 else out
+
+
+def supernet_dataset(tmp) -> str:
+    """SUPERNET_DATA's lists with every PNG as a .npy under ``tmp``; the
+    masks must hold classes 0..SUPERNET_CLASSES-1 and 255. -> the root."""
+    labels = set()
+    for lst in ("train.lst", "val.lst"):
+        lines = []
+        for line in open(os.path.join(SUPERNET_DATA, lst)).read().split():
+            arr = read_png(os.path.join(SUPERNET_DATA, line))
+            if line.startswith("masks"):
+                labels |= set(np.unique(arr).tolist())
+            npy = line.rsplit(".", 1)[0] + ".npy"
+            os.makedirs(os.path.join(tmp, os.path.dirname(npy)),
+                        exist_ok=True)
+            np.save(os.path.join(tmp, npy), arr)
+            lines.append(npy)
+        with open(os.path.join(tmp, lst), "w") as f:
+            f.write("\n".join(f"{a} {b}" for a, b in
+                              zip(lines[::2], lines[1::2])) + "\n")
+    check(labels == set(range(SUPERNET_CLASSES)) | {255},
+          f"the search_v2 masks hold {sorted(labels)}")
+    return tmp
+
+
+def supernet_config(root, snapshot_dir, **kw):
+    from segtpu_torch.config import SearchConfig
+    return SearchConfig(**{**dict(
+        data_root=root, train_list=os.path.join(root, "train.lst"),
+        val_list=os.path.join(root, "val.lst"),
+        num_classes=SUPERNET_CLASSES, seed=SUPERNET_SEED, agg_size=48,
+        num_blocks=3, num_cell_nodes=3, snapshot_dir=snapshot_dir,
+        **SUPERNET_PROXY), **kw})
+
+
+def _rounded(torch, bits, tree):
+    rnd = coarse_values(torch, bits)
+    return {k: rnd(v) for k, v in tree.items()}
+
+
+def supernet_records(torch, saver, cfg, k, rounds, bits=None):
+    """(a) (what, ok, detail): k x rounds records, each "mode" supernet
+    with a finite reward in [0, 1]; the snapshot loads at step k x rounds
+    with the baseline of the last record (the loaded baseline rounded by
+    ``coarse_values(bits)``)."""
+    from segtpu_torch import search
+    from segtpu_torch.utils.saver import SearchSaver
+    recs = saver.history
+    agent = search.create_search_agent(cfg, "cpu")
+    snap = SearchSaver(cfg.snapshot_dir).load(agent.state.params)
+    base = (None if snap is None else coarse_values(torch, bits)(
+        torch.tensor(snap[2], dtype=torch.float64)).item())
+    ok = (len(recs) == k * rounds
+          and all(r["mode"] == "supernet" and np.isfinite(r["reward"])
+                  and 0.0 <= r["reward"] <= 1.0 for r in recs)
+          and snap is not None and snap[0] == k * rounds
+          and base == recs[-1]["baseline"])
+    return (f"supernet {cfg.ctrl_version}/{cfg.ctrl_algo} records and "
+            f"snapshot", ok, f"{len(recs)} records, snapshot step "
+            f"{None if snap is None else snap[0]}, baseline {base!r} against "
+            f"{recs[-1]['baseline'] if recs else None!r}")
+
+
+def population_setup(torch, cfg):
+    """The K = 8 population of checks (b), (c) and the profile: (spec,
+    optimizer, a fresh PopState, masks of 8 genotypes sampled by the cvpr
+    controller, the first cached train batch, the first val batch)."""
+    from segtpu_torch import search, supernet as sn
+    from segtpu_torch.models.encoders import MBV2_TAP_CHANNELS
+    from segtpu_torch.rl.agent import sample_genotype
+    k = SUPERNET_RUNS[0][2]
+    _, enc, loaders = search.search_setup(cfg, None, None, "cuda")
+    batch = search._cache_taps(enc, loaders["cache_train"])[0]
+    val = search._cache_taps(enc, loaders["cache_val"])[0]
+    agent = search.create_search_agent(cfg, "cuda")
+    acts = torch.stack([sample_genotype(agent, torch.Generator(
+        device="cuda").manual_seed(i))[1] for i in range(k)])
+    spec = sn.spec_of(cfg)
+    pop = sn.population_init(torch.Generator().manual_seed(SUPERNET_SEED),
+                             spec, MBV2_TAP_CHANNELS, k, do_polyak=True,
+                             device="cuda")
+    return (spec, sn.population_optimizer(cfg), pop,
+            sn.masks_from_actions(acts, spec), batch, val)
+
+
+def profile_supernet(torch):
+    """``--profile``: device time by kind of kernel of three K = 8
+    population steps replayed as the CUDA graph and of one eager step,
+    beside their time on the host's clock, at phase 12's settings."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile as prof
+    from segtpu_torch import supernet as sn
+    out = {}
+    with tempfile.TemporaryDirectory(dir="chiprun_out") as tmp:
+        root = supernet_dataset(os.path.join(tmp, "data"))
+        cfg = supernet_config(root, os.path.join(tmp, "profile"))
+        spec, opt, pop, masks, batch, _ = population_setup(torch, cfg)
+        graphed = sn.GraphedPopulationStep(spec, opt,
+                                           aux_weight=cfg.dec_aux_weight)
+        eager = sn.make_population_train_step(spec, opt,
+                                              aux_weight=cfg.dec_aux_weight)
+        state = [graphed(pop, masks, batch)[0]]
+
+        def graph_steps():
+            for _ in range(3):
+                state[0] = graphed(state[0], masks, batch)[0]
+
+        eager(pop, masks, batch)
+        for what, fn, n in (("graph", graph_steps, 3),
+                            ("eager", lambda: eager(pop, masks, batch), 1)):
+            torch.cuda.synchronize()
+            with prof(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as p:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / n
+            kinds, launches = {}, 0
+            for key, ms, count in kernel_rows(torch, p):
+                launches += count
+                kind = next((k for k, words in TRAIN_KERNEL_KINDS
+                             if any(w in key.lower() for w in words)),
+                            "other")
+                kinds[kind] = kinds.get(kind, 0.0) + ms / n
+            dev_ms = sum(kinds.values())
+            print(f"[profile] supernet K = 8 step ({what}): {wall_ms:.2f} "
+                  f"ms on the host's clock (profiler on), {dev_ms:.2f} ms "
+                  f"of device time in {launches // n} kernel launches; by "
+                  f"kind " + ", ".join(
+                      f"{k} {v:.2f} ms ({100 * v / dev_ms:.1f} %)"
+                      for k, v in sorted(kinds.items(),
+                                         key=lambda kv: -kv[1])))
+            if what == "graph":
+                print(p.key_averages().table(sort_by="cuda_time_total",
+                                             row_limit=15))
+            out[what] = {"wall_ms": wall_ms, "device_ms": dev_ms,
+                         "launches": launches // n, "by_kind_ms": kinds}
+    return out
+
+
+def population_checks(torch, cfg, bits=None):
+    """(b) and (c) on the phase's first cached batch and K = 8 genotypes
+    sampled by the cvpr controller: one vectorised population step
+    against the 8 samples' sequential steps, and the step and eval on
+    make_mesh(POP_SHARDS, 1) of one card against the unsharded ones; the
+    vectorised (b) and sharded (c) outputs rounded by
+    ``coarse_values(bits)``. -> ([(what, ok, detail)], numbers)."""
+    from segtpu_torch import supernet as sn
+    from segtpu_torch.parallel.mesh import (
+        gather_population, make_mesh, make_sharded_population_eval,
+        make_sharded_population_step, shard_population)
+    spec, opt, pop, masks, batch, val = population_setup(torch, cfg)
+    vec = sn.make_population_train_step(spec, opt,
+                                        aux_weight=cfg.dec_aux_weight)
+    seq = sn.make_sequential_train_step(spec, opt,
+                                        aux_weight=cfg.dec_aux_weight)
+    ev = sn.make_population_eval_step(spec)
+
+    def worst(a, la, b, lb):
+        """(losses' max |d| over their max, worst leaf's max |d| over
+        max(its max |.|, POP_FLOOR), that leaf)."""
+        loss = ((_rounded(torch, bits, {"l": la})["l"] - lb).abs().max()
+                / lb.abs().max()).item()
+        leaf = (0.0, None)
+        for field in ("params", "stats", "opt_state", "polyak"):
+            got = _rounded(torch, bits, getattr(a, field))
+            for n, t in getattr(b, field).items():
+                e = ((got[n] - t).abs().max().item()
+                     / max(t.abs().max().item(), POP_FLOOR))
+                leaf = max(leaf, (e, f"{field} {n}"))
+        return loss, leaf
+
+    graphed = sn.GraphedPopulationStep(spec, opt,
+                                       aux_weight=cfg.dec_aux_weight)
+    a, la = vec(pop, masks, batch)
+    b, lb = seq(pop, masks, batch)
+    g, lg = graphed(pop, masks, batch)
+    loss_b, leaf_b = worst(a, la, b, lb)
+    loss_g, leaf_g = worst(g, lg, b, lb)
+    state = [g]
+
+    def graphed_step():
+        state[0] = graphed(state[0], masks, batch)[0]
+
+    nums = {"vectorised_step_ms": cuda_ms(lambda: vec(pop, masks, batch), 5),
+            "graphed_step_ms": cuda_ms(graphed_step, 20),
+            "sequential_step_ms": cuda_ms(lambda: seq(pop, masks, batch), 1,
+                                          warmup=0),
+            "b_loss": loss_b, "b_leaf": leaf_b, "b_graphed_loss": loss_g,
+            "b_graphed_leaf": leaf_g}
+    out = [("supernet vectorised step (eager and CUDA graph) vs sequential, "
+            "K = 8",
+            max(loss_b, leaf_b[0], loss_g, leaf_g[0]) <= POP_TOL,
+            f"eager: losses {loss_b!r}, worst leaf {leaf_b!r}; graph: losses "
+            f"{loss_g!r}, worst leaf {leaf_g!r} (limit {POP_TOL})")]
+    mesh = make_mesh(POP_SHARDS, 1,
+                     devices=[torch.device("cuda", 0)] * POP_SHARDS)
+    shards, mshards = shard_population(mesh, pop, masks)
+    s, ls = make_sharded_population_step(vec, mesh)(shards, mshards, batch)
+    cms = ev(a.eval_params(), a.stats, masks, val)
+    cms_s = make_sharded_population_eval(ev, mesh)(
+        s.eval_params(), s.stats, mshards, val)
+    cms_s = coarse_values(torch, bits)(cms_s.double()).round().long()
+    loss_c, leaf_c = worst(gather_population(s), ls, a, la)
+    share = ((cms_s - cms).abs().sum() / cms.sum()).item()
+    nums.update(c_loss=loss_c, c_leaf=leaf_c, c_cm_share=share)
+    out.append((f"supernet {POP_SHARDS}-shard step vs unsharded, K = 8",
+                loss_c <= POP_TOL and leaf_c[0] <= POP_TOL
+                and share <= CM_SHARE,
+                f"losses {loss_c!r}, worst leaf {leaf_c!r}, confusion "
+                f"{share!r} of the sum (limits {POP_TOL}, {CM_SHARE})"))
+    return out, nums
+
+
+def fleet_check(torch, cfg, bits=None):
+    """(d) One round of run_fleet_search on [cuda:0] * FLEET_WORKERS
+    against search.proxy_train run one genotype after another on fresh
+    loaders with the records' genotypes and the workers' seeds. With
+    ``bits`` (a control) the fleet's workers train from the next
+    worker's seed. -> ((what, ok, detail), numbers)."""
+    from segtpu_torch import search
+    from segtpu_torch.data.datasets import SegmentationDataset
+    from segtpu_torch.parallel.fleet import run_fleet_search
+    ds = SegmentationDataset(cfg.data_root, cfg.train_list)
+    proxy_train = search.proxy_train
+    if bits is not None:
+        def shifted(*a, rng_seed, **kw):
+            return proxy_train(*a, rng_seed=rng_seed + 1, **kw)
+        search.proxy_train = shifted
+    try:
+        (saver, secs, peak) = timed(torch, lambda: run_fleet_search(
+            cfg, devices=[torch.device("cuda", 0)] * FLEET_WORKERS,
+            dataset=ds))
+    finally:
+        search.proxy_train = proxy_train
+    _, enc, loaders = search.search_setup(cfg, ds, None, "cuda")
+    c_train = search._cache_taps(enc, loaders["cache_train"])
+    c_val = search._cache_taps(enc, loaders["cache_val"])
+
+    def sequential():
+        out = []
+        for i, r in enumerate(saver.history):
+            fresh = search.search_loaders(cfg, ds)
+            out.append(search.compute_reward(*proxy_train(
+                r["genotype"], enc, cfg, c_train, c_val, fresh["train"],
+                fresh["val"], rng_seed=cfg.seed + i)))
+        return out
+
+    seq, seq_s, _ = timed(torch, sequential)
+    again = sequential()
+    got = [r["reward"] for r in saver.history]
+    err = max(abs(g - w) for g, w in zip(got, seq))
+    spread = max(abs(g - w) for g, w in zip(again, seq))
+    ok = (len(got) == FLEET_WORKERS and err <= FLEET_TOL
+          and all(r["status"] == "ok" for r in saver.history))
+    return ((f"fleet of {FLEET_WORKERS} vs sequential proxy_train", ok,
+             f"rewards {got!r} against {seq!r}: max |d| {err!r} (limit "
+             f"{FLEET_TOL})"),
+            {"fleet_s": secs, "sequential_s": seq_s, "fleet_peak": peak,
+             "fleet_rewards": got, "sequential_rewards": seq, "err": err,
+             "sequential_again": again, "spread": spread})
+
+
+def fidelity_check(torch, bits=None):
+    """(e) measure_proxy_fidelity on FIDELITY_REAL and FIDELITY_DEGEN at
+    FIDELITY_CFG: both proxies rank the real genotype first, rho 1. With
+    ``bits`` (a control) the supernet's masks go to the other sample
+    (rolled by one along K)."""
+    from segtpu_torch import supernet as sn
+    from segtpu_torch.config import SearchConfig
+    masks_fn = sn.masks_from_actions
+    if bits is not None:
+        def rolled(actions, spec):
+            return {k: v.roll(1, 0) for k, v in masks_fn(actions,
+                                                         spec).items()}
+        sn.masks_from_actions = rolled
+    try:
+        (rho, r_pg, r_sn, _), secs, _ = timed(
+            torch, lambda: sn.measure_proxy_fidelity(
+                SearchConfig(**FIDELITY_CFG), seed=0, device="cuda",
+                genotypes=[FIDELITY_REAL, FIDELITY_DEGEN]))
+    finally:
+        sn.masks_from_actions = masks_fn
+    ok = r_pg[0] > r_pg[1] and r_sn[0] > r_sn[1] and rho == 1.0
+    return (("measure_proxy_fidelity real above degenerate, rho 1", ok,
+             f"per-genotype {r_pg!r}, supernet {r_sn!r}, rho {rho!r}"),
+            {"per_genotype": r_pg, "supernet": r_sn, "rho": rho,
+             "seconds": secs})
+
+
+def timed(torch, fn):
+    """(fn(), seconds, peak bytes) on the card."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def phase_supernet(torch):
+    """Phase 12: the population search on the card at the recorded
+    search's settings, checks (a)-(e), the CLI's three search modes.
+    Returns its numbers for the JSON."""
+    import tempfile
+    from segtpu_torch import main_search, supernet as sn
+    from segtpu_torch.data.datasets import SegmentationDataset
+    torch.cuda.empty_cache()
+    gpu = gpu_line()
+    t_phase = time.perf_counter()
+    for cut in SUPERNET_CUTS:
+        print(f"[supernet] cut: {cut}")
+    res = {"gpu": gpu, "cuts": list(SUPERNET_CUTS)}
+    os.makedirs("chiprun_out", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="chiprun_out") as tmp:
+        root = supernet_dataset(os.path.join(tmp, "data"))
+        for version, algo, k, rounds in SUPERNET_RUNS:
+            cfg = supernet_config(root, os.path.join(tmp, version),
+                                  num_iters=rounds, ctrl_version=version,
+                                  ctrl_algo=algo)
+            print(f"[supernet] {version}/{algo} population {k}: {cfg}")
+            ds = SegmentationDataset(root, cfg.train_list)
+            saver, secs, peak = timed(torch, lambda: sn.run_supernet_search(
+                cfg, population=k, dataset=ds, device="cuda"))
+            what, ok, detail = supernet_records(torch, saver, cfg, k, rounds)
+            print(f"[supernet] (a) {what}: {detail}")
+            check(ok, f"{what}: {detail}")
+            for rnd in range(rounds):
+                rs = saver.history[rnd * k:(rnd + 1) * k]
+                print(f"[supernet] {version}/{algo} round {rnd}: "
+                      f"{rs[0]['seconds']} s, stage 1 "
+                      f"{rs[0]['stage1_ms']:.2f} ms a population step, "
+                      f"rewards {[x['reward'] for x in rs]!r} on {gpu}")
+            print(f"[supernet] {version}/{algo}: {rounds} rounds in "
+                  f"{secs:.2f} s with the encoder cache, peak "
+                  f"{peak / 2 ** 30:.3f} GiB on {gpu}")
+            res[version] = {"records": saver.history, "seconds": secs,
+                            "peak_bytes": peak}
+        cfg = supernet_config(root, os.path.join(tmp, "checks"))
+        checks, nums = population_checks(torch, cfg)
+        (fleet, fnums) = fleet_check(torch, dataclasses.replace(
+            cfg, num_iters=1, num_epochs=FLEET_EPOCHS,
+            snapshot_dir=os.path.join(tmp, "fleet")))
+        (fid, enums) = fidelity_check(torch)
+        res.update(population=nums, fleet=fnums, fidelity=enums)
+        for what, ok, detail in checks + [fleet, fid]:
+            print(f"[supernet] {what}: {detail} on {gpu}")
+            check(ok, f"{what}: {detail}")
+        print(f"[supernet] population step K = 8: vectorised "
+              f"{nums['vectorised_step_ms']:.2f} ms eager, "
+              f"{nums['graphed_step_ms']:.2f} ms as a CUDA graph, "
+              f"sequential {nums['sequential_step_ms']:.2f} ms; fleet round "
+              f"{fnums['fleet_s']:.2f} s against "
+              f"{fnums['sequential_s']:.2f} s sequential (the card against "
+              f"itself: {fnums['spread']!r}); fidelity "
+              f"{enums['seconds']:.2f} s on {gpu}")
+        # the CLI's three search modes (a card each: --pop-devices 4 needs
+        # four, and make_mesh says so)
+        cli = ["search", "--synthetic", "--num-iters", "1", "--crop-size",
+               "64", "64", "--num-epochs", "1", "0"]
+        for flags in (["--supernet", "8"], ["--fleet"]):
+            out = os.path.join(tmp, "cli" + flags[0])
+            main_search.main(cli + flags + ["--snapshot-dir", out])
+            check(os.path.exists(os.path.join(out, "controller.npz")),
+                  f"the CLI's search {flags} wrote no snapshot")
+        if torch.cuda.device_count() < 4:
+            try:
+                main_search.main(cli + ["--supernet", "8", "--pop-devices",
+                                        "4"])
+                fail("--pop-devices 4 ran on fewer than four cards")
+            except ValueError as e:
+                print(f"[supernet] CLI --supernet 8 --pop-devices 4 on "
+                      f"{torch.cuda.device_count()} card: ValueError: {e}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[supernet] phase: {res['phase_s']:.2f} s on {gpu}")
+    return res
+
+
+def supernet_control(torch, bits: int) -> dict:
+    """The control's supernet checks: (a) on one round of each run with
+    the snapshot's baseline rounded to ``bits`` bits, (b) and (c) with
+    the vectorised and sharded outputs rounded, (d) with the fleet's
+    workers on the next worker's seed, (e) with the supernet's masks
+    rolled to the other genotype. Returns {check: failed}."""
+    import tempfile
+    from segtpu_torch import supernet as sn
+    from segtpu_torch.data.datasets import SegmentationDataset
+    res = {}
+    os.makedirs("chiprun_out", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="chiprun_out") as tmp:
+        root = supernet_dataset(os.path.join(tmp, "data"))
+        checks = []
+        for version, algo, k, _ in SUPERNET_RUNS:
+            cfg = supernet_config(root, os.path.join(tmp, version),
+                                  num_iters=1, ctrl_version=version,
+                                  ctrl_algo=algo)
+            saver = sn.run_supernet_search(
+                cfg, population=k, device="cuda",
+                dataset=SegmentationDataset(root, cfg.train_list))
+            checks.append(supernet_records(torch, saver, cfg, k, 1, bits))
+        cfg = supernet_config(root, os.path.join(tmp, "checks"))
+        checks += population_checks(torch, cfg, bits)[0]
+        checks.append(fleet_check(torch, dataclasses.replace(
+            cfg, num_iters=1, num_epochs=FLEET_EPOCHS,
+            snapshot_dir=os.path.join(tmp, "fleet")), bits)[0])
+        checks.append(fidelity_check(torch, bits)[0])
+    for what, ok, detail in checks:
+        res[what] = must_fail(what, lambda: check(ok, f"{what}: {detail}"))
+    return res
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3627,9 +4164,11 @@ def main() -> None:
                if "floor_ms" in r else {})})
     train = phase_train(torch, frames)
     search = phase_search(torch)
+    supernet = phase_supernet(torch)
     if "--profile" in sys.argv[1:]:
         profile(torch, seg, seg_t, frames)
         train["profile"] = profile_train(torch)
+        supernet["profile"] = profile_supernet(torch)
     gpu = gpu_line()
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3644,7 +4183,7 @@ def main() -> None:
                        "launches": t_launches, "mask_agreement": t_rate,
                        "space_launches": t_space_launches},
                    "experiments": experiments, "train": train,
-                   "search": search},
+                   "search": search, "supernet": supernet},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -12,7 +12,10 @@ same name:
 * BatchNorm ``scale``/``bias`` and ``mean``/``var`` and the
   classifier bias ``b`` are copied;
 * the stem keeps its 3x3 kernel; the port derives its own
-  ``stem_s2d_kernel``.
+  ``stem_s2d_kernel``;
+* the masked supernet's per-slot classifier ``clf.w`` [pool_max,
+  agg_size, K] is the same in both packages and is copied as it is, so
+  a ``supernet_init`` (params, stats) loads into ``supernet.Supernet``.
 
 Any missing, extra or mis-shaped leaf raises. No JAX import.
 
@@ -26,6 +29,9 @@ gradients or Polyak averages.
 ``controller_init`` tree (numpy) into the port's controller tree of f32
 tensors, names and shapes as they are (its matrices are products'
 operands, not conv kernels); ``controller_to_jax`` is the way back.
+
+``load_jax_population(pop)`` turns a JAX supernet ``PopState`` (every
+leaf K-stacked) into the port's.
 """
 
 from __future__ import annotations
@@ -48,6 +54,23 @@ def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
         _flatten(v, f"{prefix}.{k}" if prefix else str(k), out)
 
 
+def _to_port(key: str, arr: np.ndarray, stacked: bool = False):
+    """One JAX leaf in the port's layout: a conv kernel ``w`` HWIO ->
+    OIHW; the supernet's per-slot classifier ``clf.w`` [pool_max, C, K]
+    as it is. ``stacked``: the leaf has a leading population axis."""
+    if key.rsplit(".", 1)[-1] != "w":
+        return arr
+    lead = 1 if stacked else 0
+    if key == "clf.w" and arr.ndim == 3 + lead:
+        return arr
+    if arr.ndim != 4 + lead:
+        raise ValueError(f"{key}: conv kernel must be 4-D HWIO, got shape "
+                         f"{arr.shape}")
+    perm = (3, 2, 0, 1)                                      # HWIO -> OIHW
+    return np.transpose(arr, (0,) + tuple(p + 1 for p in perm)
+                        if stacked else perm)
+
+
 def load_jax_params(model: torch.nn.Module, params, stats) -> torch.nn.Module:
     """Copy JAX ``params``/``stats`` into ``model`` in place; returns it."""
     leaves: Dict[str, np.ndarray] = {}
@@ -68,11 +91,7 @@ def load_jax_params(model: torch.nn.Module, params, stats) -> torch.nn.Module:
                          f"{extra[:8]} ({len(extra)})")
     with torch.no_grad():
         for key, arr in leaves.items():
-            if key.rsplit(".", 1)[-1] == "w":
-                if arr.ndim != 4:
-                    raise ValueError(f"{key}: conv kernel must be 4-D HWIO, "
-                                     f"got shape {arr.shape}")
-                arr = np.transpose(arr, (3, 2, 0, 1))        # HWIO -> OIHW
+            arr = _to_port(key, arr)
             dst = state[key]
             if tuple(arr.shape) != tuple(dst.shape):
                 raise ValueError(f"{key}: shape {tuple(arr.shape)} does not "
@@ -99,7 +118,7 @@ def to_jax_tree(named: Mapping[str, torch.Tensor]):
     tree: dict = {}
     for key, t in named.items():
         arr = np.array(t.detach().float().cpu())      # a copy, never a view
-        if key.rsplit(".", 1)[-1] == "w":
+        if key.rsplit(".", 1)[-1] == "w" and arr.ndim == 4:
             arr = np.transpose(arr, (2, 3, 1, 0))            # OIHW -> HWIO
         *path, leaf = key.split(".")
         node = tree
@@ -144,3 +163,42 @@ def controller_to_jax(params):
     if isinstance(params, dict):
         return {k: controller_to_jax(v) for k, v in params.items()}
     return np.array(params.detach().float().cpu())
+
+
+def _stacked(tree, device) -> Dict[str, torch.Tensor]:
+    leaves: Dict[str, np.ndarray] = {}
+    _flatten(tree, "", leaves)
+    return {k: torch.tensor(_to_port(k, v, stacked=True),
+                            dtype=torch.float32, device=device)
+            for k, v in leaves.items()}
+
+
+def _momentum_trace(opt_state):
+    """The ``trace`` tree of optax's momentum state inside a (nested)
+    chain state, found by its field name; None without momentum."""
+    if hasattr(opt_state, "trace"):
+        return opt_state.trace
+    if isinstance(opt_state, (list, tuple)):
+        for s in opt_state:
+            t = _momentum_trace(s)
+            if t is not None:
+                return t
+    return None
+
+
+def load_jax_population(pop, *, device="cpu"):
+    """A JAX supernet ``PopState`` (K-stacked ``params``/``stats``, an
+    optax chain state with a momentum trace, ``polyak`` or None, the
+    shared ``step``; leaves numpy or arrays) -> the port's
+    ``segtpu_torch.supernet.PopState`` on ``device``: the same leaves by
+    state-dict name, conv kernels [K, kh, kw, cin, cout] -> [K, cout,
+    cin, kh, kw]. A chain without momentum gives zero traces."""
+    from segtpu_torch.supernet import PopState
+    params = _stacked(pop.params, device)
+    trace = _momentum_trace(pop.opt_state)
+    return PopState(
+        params, _stacked(pop.stats, device),
+        _stacked(trace, device) if trace is not None
+        else {k: torch.zeros_like(v) for k, v in params.items()},
+        None if pop.polyak is None else _stacked(pop.polyak, device),
+        int(np.asarray(pop.step)))

@@ -38,6 +38,18 @@ def _interp_matrix(n_in: int, n_out: int, align_corners: bool) -> np.ndarray:
     return mat.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _interp_tensor(n_in: int, n_out: int, align_corners: bool, device,
+                   dtype) -> torch.Tensor:
+    """``_interp_matrix`` as a tensor on ``device``, copied there once: a
+    resize then launches no host-to-device copy (which a CUDA graph's
+    capture refuses). Read only; made outside inference mode, so that
+    autograd may save it whichever mode the first resize ran in."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_matrix(
+            n_in, n_out, align_corners)).to(device, dtype)
+
+
 def resize_bilinear(x, out_hw, *, align_corners: bool = True,
                     compute_dtype=torch.float32):
     """Bilinear-resize the two spatial dims of an [N, C, H, W] tensor,
@@ -47,10 +59,8 @@ def resize_bilinear(x, out_hw, *, align_corners: bool = True,
     h_in, w_in = x.shape[-2], x.shape[-1]
     if (h_in, w_in) == (h_out, w_out):
         return x
-    ah = torch.from_numpy(_interp_matrix(h_in, h_out, align_corners)).to(
-        x.device, compute_dtype)
-    aw = torch.from_numpy(_interp_matrix(w_in, w_out, align_corners)).to(
-        x.device, compute_dtype)
+    ah = _interp_tensor(h_in, h_out, align_corners, x.device, compute_dtype)
+    aw = _interp_tensor(w_in, w_out, align_corners, x.device, compute_dtype)
     y = torch.matmul(ah, x.to(compute_dtype))      # [.., Ho, Wi]
     y = torch.matmul(y, aw.t())                    # [.., Ho, Wo]
     return y.to(x.dtype)

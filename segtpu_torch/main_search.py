@@ -1,6 +1,8 @@
 """CLI entry point (counterpart: segtpu/main_search.py).
 
-Subcommands: ``search`` (the NAS loop), ``train`` (a fixed
+Subcommands: ``search`` (the NAS loop: per genotype, or with
+``--supernet K`` the masked population, sharded over ``--pop-devices D``,
+or with ``--fleet`` one genotype a device), ``train`` (a fixed
 architecture), ``eval`` (mIoU over a manifest), ``infer`` (one image
 through the served engine and its kernels). Flags are the JAX package's
 and map onto ``config.SearchConfig`` and ``train.TrainConfig``; every
@@ -10,6 +12,7 @@ there is no card). ``bench`` and ``fidelity`` are not ported yet
 
 Usage:
     python -m segtpu_torch.main_search search --synthetic --num-iters 5
+    python -m segtpu_torch.main_search search --synthetic --supernet 8
     python -m segtpu_torch.main_search infer --arch arch0 --image img.npy
 """
 
@@ -64,14 +67,13 @@ def _add_search_flags(p: argparse.ArgumentParser):
     p.add_argument("--op-size", type=int, default=defaults.op_size)
     p.add_argument("--num-iters", type=int, default=defaults.num_iters)
     p.add_argument("--supernet", type=int, default=0, metavar="K",
-                   help="vectorized population search: K archs per round "
-                        "(not ported yet)")
+                   help="vectorized population search: K archs per round")
     p.add_argument("--pop-devices", type=int, default=0, metavar="D",
                    help="with --supernet: shard the K population samples "
-                        "over D devices (not ported yet)")
+                        "over D devices (on the CPU: D logical devices)")
     p.add_argument("--fleet", action="store_true",
                    help="per-device fleet search, one genotype per device "
-                        "(not ported yet)")
+                        "(every CUDA device; one worker on the CPU)")
     p.add_argument("--seed", type=int, default=defaults.seed)
     p.add_argument("--snapshot-dir", default=defaults.snapshot_dir)
     p.add_argument("--resume", action="store_true")
@@ -123,24 +125,31 @@ def _model(args, genotype, device):
                             generator=torch.Generator().manual_seed(0))
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to segtpu_torch yet (ROADMAP.md Queue A "
-        f"{item})")
+def _search_devices(device: str, n: int):
+    """``n`` devices of ``--device``'s kind: ``n`` logical CPU devices
+    for a CPU, else None (every CUDA device, the mesh's default)."""
+    from segtpu_torch.utils.helpers import resolve_device
+    dev = resolve_device(device)
+    return [dev] * n if dev.type == "cpu" else None
 
 
 def cmd_search(args):
     cfg = _cfg_from_args(args)
     if getattr(args, "supernet", 0):
-        _not_ported("--supernet (segtpu/supernet.py)"
-                    + (" with --pop-devices" if args.pop_devices else ""),
-                    "item 8: supernet.py and the mesh's population steps")
-    if getattr(args, "pop_devices", 0):
-        _not_ported("--pop-devices", "item 8: the mesh's population steps")
-    if getattr(args, "fleet", False):
-        _not_ported("--fleet (segtpu/parallel/fleet.py)", "item 8: fleet.py")
-    from segtpu_torch.search import run_search
-    saver = run_search(cfg, device=args.device)
+        from segtpu_torch.supernet import run_supernet_search
+        mesh = None
+        if getattr(args, "pop_devices", 0):
+            from segtpu_torch.parallel.mesh import make_mesh
+            mesh = make_mesh(args.pop_devices, 1, devices=_search_devices(
+                args.device, args.pop_devices))
+        saver = run_supernet_search(cfg, population=args.supernet,
+                                    mesh=mesh, device=args.device)
+    elif getattr(args, "fleet", False):
+        from segtpu_torch.parallel.fleet import run_fleet_search
+        saver = run_fleet_search(cfg, devices=_search_devices(args.device, 1))
+    else:
+        from segtpu_torch.search import run_search
+        saver = run_search(cfg, device=args.device)
     best = saver.best(1)
     if best:
         print(f"best reward {best[0]['reward']:.4f}: {best[0]['genotype']}")

@@ -121,24 +121,18 @@ def _sync(dev) -> float:
     return time.perf_counter()
 
 
-def proxy_train(genotype, encoder, cfg: SearchConfig, cached_train,
-                cached_val, train_loader, val_loader, *, rng_seed: int = 0,
-                teacher_fn=None, timings: Optional[dict] = None):
-    """Two-stage proxy training of one genotype -> (miou1, miou2).
-
-    ``encoder``: the search's encoder module (not changed: stage 2 trains
-    a copy). ``cached_train``/``cached_val``: the device-resident tap
-    batches of stage 1 (a batch may carry ``teacher`` logits for KD);
-    ``train_loader``/``val_loader``: the image loaders of stage 2;
-    ``teacher_fn`` (images -> logits) gives KD targets for each augmented
-    batch when ``cfg.do_kd``. ``timings``, when given, receives each
-    stage's steps and seconds (the device synchronized around them)."""
+def stage1_reward(genotype, cfg: SearchConfig, cached_train, cached_val, *,
+                  rng_seed: int, device, kd_coeff: float = 0.0,
+                  timings: Optional[dict] = None):
+    """Stage 1 of a proxy training: ``genotype``'s decoder from
+    ``init_decoder(seed=rng_seed)`` trained alone over the cached tap
+    batches for ``cfg.num_epochs[0]`` epochs, then evaluated over the
+    cached val batches -> (miou1, the train state). ``timings``, when
+    given, receives the steps and seconds of the training and of the
+    evaluation (the device synchronized around them)."""
+    dev = torch.device(device)
     fam = infer_family(genotype)
-    dev = next(encoder.parameters()).device
-    kd_coeff = cfg.kd_coeff if cfg.do_kd else 0.0
     dec = init_decoder(genotype, cfg, seed=rng_seed, device=dev)
-
-    # ---- stage 1: the decoder alone over the cached taps ----
     t0 = _sync(dev)
     opt_dec = sgd_chain(cfg.dec_lr, momentum=0.9, wd=cfg.dec_wd,
                         clip=cfg.dec_grad_clip)
@@ -156,7 +150,29 @@ def proxy_train(genotype, encoder, cfg: SearchConfig, cached_train,
     cm = np.zeros((cfg.num_classes, cfg.num_classes), np.int64)
     for batch in cached_val:
         cm += eval_dec(eval_params, eval_stats, batch).cpu().numpy()
-    miou1 = mean_iou(cm)
+    if timings is not None:
+        timings.update(stage1_steps=cfg.num_epochs[0] * len(cached_train),
+                       stage1_s=t1 - t0, eval1_s=_sync(dev) - t1)
+    return mean_iou(cm), state
+
+
+def proxy_train(genotype, encoder, cfg: SearchConfig, cached_train,
+                cached_val, train_loader, val_loader, *, rng_seed: int = 0,
+                teacher_fn=None, timings: Optional[dict] = None):
+    """Two-stage proxy training of one genotype -> (miou1, miou2).
+
+    ``encoder``: the search's encoder module (not changed: stage 2 trains
+    a copy). ``cached_train``/``cached_val``: the device-resident tap
+    batches of stage 1 (a batch may carry ``teacher`` logits for KD);
+    ``train_loader``/``val_loader``: the image loaders of stage 2;
+    ``teacher_fn`` (images -> logits) gives KD targets for each augmented
+    batch when ``cfg.do_kd``. ``timings``, when given, receives each
+    stage's steps and seconds (the device synchronized around them)."""
+    dev = next(encoder.parameters()).device
+    kd_coeff = cfg.kd_coeff if cfg.do_kd else 0.0
+    miou1, state = stage1_reward(genotype, cfg, cached_train, cached_val,
+                                 rng_seed=rng_seed, device=dev,
+                                 kd_coeff=kd_coeff, timings=timings)
 
     # ---- stage 2: a short end-to-end fine-tune ----
     t2 = _sync(dev)
@@ -184,8 +200,6 @@ def proxy_train(genotype, encoder, cfg: SearchConfig, cached_train,
     miou2 = mean_iou(cm)
     if timings is not None:
         timings.update(
-            stage1_steps=cfg.num_epochs[0] * len(cached_train),
-            stage1_s=t1 - t0, eval1_s=t2 - t1,
             stage2_steps=cfg.num_epochs[1] * len(train_loader),
             stage2_s=t3 - t2, eval2_s=_sync(dev) - t3)
     return miou1, miou2
@@ -198,6 +212,56 @@ def compute_reward(miou1: float, miou2: float) -> float:
     return math.sqrt(m1 * m2)
 
 
+def search_loaders(cfg: SearchConfig, dataset):
+    """{"train", "val": the proxy task's stage-2 loaders; "cache_train",
+    "cache_val": the fixed-crop loaders of the encoder cache, batch
+    ``cfg.batch_size[0]``} over ``dataset``."""
+    train_loader, val_loader = create_loaders(
+        dataset, batch_size=cfg.batch_size[1], crop=cfg.crop_size,
+        meta_train_prct=cfg.meta_train_prct,
+        shorter_side=cfg.shorter_side, seed=cfg.seed)
+    loaders = {"train": train_loader, "val": val_loader}
+    for name, src in (("cache_train", train_loader),
+                      ("cache_val", val_loader)):
+        loaders[name] = BatchLoader(
+            dataset, batch_size=cfg.batch_size[0], crop=cfg.crop_size,
+            train=False, seed=cfg.seed, indices=src.indices)
+    return loaders
+
+
+def search_setup(cfg: SearchConfig, dataset, encoder, device, *,
+                 enc_seed: Optional[int] = None):
+    """-> (dataset, encoder on ``device``, ``search_loaders``).
+    ``dataset`` defaults to ``cfg``'s; ``encoder`` to a ``MobileNetV2``
+    drawn from ``enc_seed`` (default ``_seed(cfg.seed, 0)``), or
+    ``cfg.enc_ckpt``'s weights."""
+    dataset = dataset if dataset is not None else _make_dataset(cfg)
+    if encoder is None:
+        encoder = MobileNetV2(generator=torch.Generator().manual_seed(
+            _seed(cfg.seed, 0) if enc_seed is None else enc_seed))
+        if cfg.enc_ckpt:
+            from segtpu_torch.convert.torch_import import load_mbv2_checkpoint
+            load_mbv2_checkpoint(cfg.enc_ckpt, encoder)
+    return dataset, encoder.to(device), search_loaders(cfg, dataset)
+
+
+def create_search_agent(cfg: SearchConfig, device):
+    """The controller and its agent for ``cfg`` (its family's spec, algo
+    and hyperparameters), drawn from ``_seed(cfg.seed, 1)``."""
+    if cfg.ctrl_version in ("wacv", "template"):
+        spec = TemplateControllerSpec(
+            num_blocks=cfg.num_blocks, hidden_size=cfg.lstm_hidden_size,
+            emb_size=cfg.op_size)
+    else:
+        spec = MicroControllerSpec(
+            num_blocks=cfg.num_blocks, num_cell_nodes=cfg.num_cell_nodes,
+            hidden_size=cfg.lstm_hidden_size, emb_size=cfg.op_size)
+    return create_agent(torch.Generator().manual_seed(_seed(cfg.seed, 1)),
+                        spec=spec, algo=cfg.ctrl_algo, lr=cfg.ctrl_lr,
+                        baseline_decay=cfg.ctrl_baseline_decay,
+                        entropy_coef=cfg.ctrl_entropy_coef, device=device)
+
+
 def run_search(cfg: SearchConfig, *, dataset=None, encoder=None,
                teacher=None, device="cuda"):
     """The whole NAS loop on ``device``. Returns the ``SearchSaver``
@@ -208,30 +272,12 @@ def run_search(cfg: SearchConfig, *, dataset=None, encoder=None,
     ``Segmenter`` whose logits are distilled into every proxy training
     when ``cfg.do_kd`` (the reference's --do-kd)."""
     dev = resolve_device(device)
-    dataset = dataset if dataset is not None else _make_dataset(cfg)
-    train_loader, val_loader = create_loaders(
-        dataset, batch_size=cfg.batch_size[1], crop=cfg.crop_size,
-        meta_train_prct=cfg.meta_train_prct,
-        shorter_side=cfg.shorter_side, seed=cfg.seed)
-    # fixed-crop loaders for the encoder cache (stage 1)
-    cache_train_loader = BatchLoader(
-        dataset, batch_size=cfg.batch_size[0], crop=cfg.crop_size,
-        train=False, seed=cfg.seed, indices=train_loader.indices)
-    cache_val_loader = BatchLoader(
-        dataset, batch_size=cfg.batch_size[0], crop=cfg.crop_size,
-        train=False, seed=cfg.seed, indices=val_loader.indices)
-
-    if encoder is None:
-        encoder = MobileNetV2(
-            generator=torch.Generator().manual_seed(_seed(cfg.seed, 0)))
-        if cfg.enc_ckpt:
-            from segtpu_torch.convert.torch_import import load_mbv2_checkpoint
-            load_mbv2_checkpoint(cfg.enc_ckpt, encoder)
-        encoder = encoder.to(dev)
-
+    _, encoder, loaders = search_setup(cfg, dataset, encoder, dev)
+    train_loader, val_loader = loaders["train"], loaders["val"]
+    cache_train_loader = loaders["cache_train"]
     log.info("caching encoder features for stage-1 proxy training")
     cached_train = _cache_taps(encoder, cache_train_loader)
-    cached_val = _cache_taps(encoder, cache_val_loader)
+    cached_val = _cache_taps(encoder, loaders["cache_val"])
 
     teacher_fn = None
     if cfg.do_kd and teacher is not None:
@@ -245,19 +291,7 @@ def run_search(cfg: SearchConfig, *, dataset=None, encoder=None,
         for batch, host in zip(cached_train, cache_train_loader):
             batch["teacher"] = teacher_fn(host["image"])
 
-    if cfg.ctrl_version in ("wacv", "template"):
-        spec = TemplateControllerSpec(
-            num_blocks=cfg.num_blocks, hidden_size=cfg.lstm_hidden_size,
-            emb_size=cfg.op_size)
-    else:
-        spec = MicroControllerSpec(
-            num_blocks=cfg.num_blocks, num_cell_nodes=cfg.num_cell_nodes,
-            hidden_size=cfg.lstm_hidden_size, emb_size=cfg.op_size)
-    agent = create_agent(torch.Generator().manual_seed(_seed(cfg.seed, 1)),
-                         spec=spec, algo=cfg.ctrl_algo,
-                         lr=cfg.ctrl_lr,
-                         baseline_decay=cfg.ctrl_baseline_decay,
-                         entropy_coef=cfg.ctrl_entropy_coef, device=dev)
+    agent = create_search_agent(cfg, dev)
 
     saver = SearchSaver(cfg.snapshot_dir)
     start = 0

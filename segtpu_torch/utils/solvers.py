@@ -16,6 +16,9 @@ gradient, as optax steps on the zeros ``stop_gradient`` gives: its
 weight decay and momentum still move it. Parameters and state are
 updated in place.
 
+``PopulationSGD`` is the same chain on each sample of a K-stacked
+population (the supernet's vmapped chain): one norm per sample.
+
 ``Adam`` is ``optax.adam(lr)``, the search controller's optimizer, on
 nested dicts of tensors, without updating in place.
 """
@@ -110,16 +113,68 @@ def sgd_chain(lr: float, *, momentum: float = 0.9, wd: float = 0.0,
     return GroupSGD({"all": SGDGroup(lr, momentum, wd, clip)})
 
 
+def _per_sample(v, t):
+    """A [K] vector shaped to broadcast over a [K, ...] leaf."""
+    return v.reshape((-1,) + (1,) * (t.dim() - 1))
+
+
+class PopulationSGD:
+    """``sgd_chain`` on each sample of a population, the JAX supernet's
+    vmapped optax chain: every leaf carries a leading K axis, and sample
+    k's gradients are clipped by sample k's own global norm (over the
+    k-th slice of every leaf), then decayed, then pushed through the
+    momentum trace, as ``GroupSGD`` does for one sample. ``GroupSGD``
+    given K-stacked leaves would clip the whole population by one norm.
+    ``update`` returns new tensors and changes none it is given."""
+
+    def __init__(self, lr: float, *, momentum: float = 0.9, wd: float = 0.0,
+                 clip: float):
+        self.group = SGDGroup(lr, momentum, wd, clip)
+
+    @staticmethod
+    def norms(grads) -> torch.Tensor:
+        """[K]: each sample's sqrt(sum over every leaf of its slice's sum
+        of squares)."""
+        return torch.stack([torch.linalg.vector_norm(t.flatten(1), dim=1)
+                            for t in grads]).square().sum(0).sqrt()
+
+    @torch.no_grad()
+    def update(self, grads: Mapping[str, torch.Tensor],
+               opt_state: Mapping[str, torch.Tensor],
+               params: Mapping[str, torch.Tensor]):
+        """-> (new parameters, new momentum traces)."""
+        cfg, names = self.group, list(params)
+        p = [params[n] for n in names]
+        g = [grads[n] for n in names]
+        norm = self.norms(g)
+        keep = norm < cfg.clip
+        g = [torch.where(_per_sample(keep, t), t,
+                         t / _per_sample(norm, t) * cfg.clip) for t in g]
+        if cfg.wd:
+            g = torch._foreach_add(g, p, alpha=cfg.wd)
+        trace = torch._foreach_mul([opt_state[n] for n in names],
+                                   cfg.momentum)
+        torch._foreach_add_(trace, g)
+        new_p = torch._foreach_add(p, trace, alpha=-cfg.lr)
+        return dict(zip(names, new_p)), dict(zip(names, trace))
+
+
+def polyak_decay(decay: float, step: int) -> float:
+    """``min(decay, step / (step + 1))`` in f32, as the JAX package
+    computes Polyak's effective decay."""
+    s = np.float32(step)
+    return float(np.minimum(np.float32(decay), s / (s + np.float32(1.0))))
+
+
 @torch.no_grad()
 def polyak_update(avg_params: Dict[str, torch.Tensor],
                   params: Mapping[str, torch.Tensor], decay: float,
                   step: int) -> Dict[str, torch.Tensor]:
     """Polyak averaging in place: ``avg = d * avg + (1 - d) * p`` with
-    ``d = min(decay, step / (step + 1))`` (``step``: the count of steps
+    ``d = polyak_decay(decay, step)`` (``step``: the count of steps
     before this one), in f32 as the JAX package computes it: a running
     mean over the first 1 / (1 - decay) steps."""
-    s = np.float32(step)
-    d = np.minimum(np.float32(decay), s / (s + np.float32(1.0)))
+    d = np.float32(polyak_decay(decay, step))
     one_minus = np.float32(1.0) - d
     avg = [avg_params[n] for n in params]
     torch._foreach_mul_(avg, float(d))

@@ -21,7 +21,10 @@
   ``invalid_reward`` and resumes; ``SearchSaver`` snapshots of either
   package load and resume in the other.
 * The CLI parses and dispatches as ``tests/test_cli.py`` holds the JAX
-  CLI to; the unported paths raise naming the roadmap; ``train`` hands
+  CLI to; ``--supernet``, ``--pop-devices`` and ``--fleet`` reach the
+  population search, its mesh and the fleet (``--pop-devices 2`` on one
+  card raises ``make_mesh``'s error), and a sharded ``--supernet`` round
+  runs on the CPU; ``train`` hands
   ``--shorter-side`` to its loader; ``infer`` gives the engine's mask and
   ``eval`` the eval step's mIoU.
 * A subprocess imports every ``segtpu_torch`` module and finds neither
@@ -465,13 +468,66 @@ def test_search_flag_mapping():
     assert (cfg.agg_size, cfg.sep_repeats) == (32, 2)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--supernet", "4"], "supernet.py"),
-    (["--supernet", "8", "--pop-devices", "4"], "population steps"),
-    (["--fleet"], "fleet.py")])
-def test_unported_search_paths_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("flags,mode", [
+    (["--supernet", "4", "--ctrl-version", "wacv"], "supernet"),
+    (["--supernet", "8", "--pop-devices", "4"], "mesh"),
+    (["--fleet", "--ctrl-algo", "reinforce"], "fleet")])
+def test_search_modes_dispatch(monkeypatch, flags, mode):
+    """--supernet reaches run_supernet_search with K and no mesh,
+    --pop-devices a (D, 1) mesh of D logical CPU devices, --fleet
+    run_fleet_search on one CPU worker; each with the flags' config."""
+    import segtpu_torch.parallel.fleet as tfleet
+    import segtpu_torch.supernet as tsn
+    seen = {}
+
+    def supernet(cfg, *, population, mesh, device):
+        seen.update(cfg=cfg, k=population, mesh=mesh, device=device)
+        raise _Stop
+
+    def fleet(cfg, *, devices):
+        seen.update(cfg=cfg, devices=devices)
+        raise _Stop
+
+    monkeypatch.setattr(tsn, "run_supernet_search", supernet)
+    monkeypatch.setattr(tfleet, "run_fleet_search", fleet)
+    with pytest.raises(_Stop):
         tmain.main(["search", "--synthetic", "--device", "cpu"] + flags)
+    if mode == "fleet":
+        assert seen["devices"] == [torch.device("cpu")]
+        assert seen["cfg"].ctrl_algo == "reinforce"
+        return
+    assert seen["k"] == int(flags[1]) and seen["device"] == "cpu"
+    if mode == "supernet":
+        assert seen["mesh"] is None and seen["cfg"].ctrl_version == "wacv"
+    else:
+        assert seen["mesh"].shape == {"data": 4, "space": 1}
+        assert seen["mesh"].devices == [torch.device("cpu")] * 4
+
+
+def test_pop_devices_on_one_card_raises(monkeypatch):
+    """--pop-devices 2 on a machine with one card: make_mesh's
+    ValueError, naming the counts, before any search work."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
+        tmain.main(["search", "--synthetic", "--supernet", "8",
+                    "--pop-devices", "2"])
+
+
+def test_supernet_cli_runs_on_the_cpu(tmp_path, capsys):
+    """search --supernet 2 --pop-devices 2 --device cpu: one sharded
+    round end to end, its snapshot written and its best printed."""
+    tmain.main(["search", "--synthetic", "--supernet", "2", "--pop-devices",
+                "2", "--num-iters", "1", "--crop-size", "32", "32",
+                "--batch-size", "8", "8", "--num-epochs", "1", "0",
+                "--num-classes", "4", "--agg-size", "8", "--device", "cpu",
+                "--snapshot-dir", str(tmp_path)])
+    assert "best reward" in capsys.readouterr().out
+    assert os.path.exists(tmp_path / "controller.npz")
 
 
 def test_search_needs_a_card_unless_asked():
@@ -554,7 +610,9 @@ def test_port_imports_no_jax():
     names = [m.name for m in pkgutil.walk_packages(
         segtpu_torch.__path__, "segtpu_torch.")]
     assert {"segtpu_torch.search", "segtpu_torch.main_search",
-            "segtpu_torch.rl.agent", "segtpu_torch.data.datasets"} <= set(names)
+            "segtpu_torch.rl.agent", "segtpu_torch.data.datasets",
+            "segtpu_torch.supernet", "segtpu_torch.parallel.fleet",
+            "segtpu_torch.parallel.mesh"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {names + ['chip_smoke']!r}:\n"
             "    importlib.import_module(n)\n"
