@@ -237,12 +237,40 @@ Phases, each a hard failure (non-zero exit) when it fails:
    max(|leaf|, POP_FLOOR), confusion matrices within CM_SHARE of their
    sum; (d) one round of run_fleet_search on [cuda:0] * 4 at
    FLEET_EPOCHS against search.proxy_train one genotype after another,
-   run twice (the card against itself printed), rewards within
-   FLEET_TOL; (e) measure_proxy_fidelity on tests/test_supernet.py's real
-   and degenerate genotypes at its config: both proxies rank the real
-   one first, rho 1. Then the CLI: search --synthetic --supernet 8 and
+   run twice (the card against itself printed), both under
+   deterministic algorithms, rewards within FLEET_TOL (0: equal); (e)
+   measure_proxy_fidelity on tests/test_supernet.py's real and
+   degenerate genotypes at its config: both proxies rank the real one
+   first, rho 1. Then the CLI: search --synthetic --supernet 8 and
    --fleet, one round each, and --supernet 8 --pop-devices 4, which must
    raise make_mesh's ValueError on fewer than four cards.
+   (d)'s deterministic algorithms are torch.use_deterministic_algorithms
+   and cuDNN's (CUBLAS_WORKSPACE_CONFIG set when main starts); it also
+   runs the sequential pair twice with PyTorch's default algorithms and
+   prints both pairs' spreads and times (a measurement, not a check).
+13. data_parallel: phase train's configuration (arch0 with aux heads,
+   b16 512x512, TF32 off) with more ignored pixels in the first shard's
+   images. The sharded train step (parallel.make_sharded_train_step) on
+   make_mesh(2, 1) of the one card (two logical shards, a thread each,
+   meeting at every train BatchNorm) against the unsharded step on the
+   whole batch, by tests/test_torch_data_parallel.py's rule: the loss at
+   rel 2e-4; by group the parameters, traces, Polyak averages and
+   running stats within max(floor x the unsharded step's move, 4 x its
+   own spread on the batch reversed). The sharded eval's confusion
+   matrix equal to the unsharded one's. run_training with data_parallel
+   for an epoch of SyntheticDataset(n=32) on the one card (unsharded,
+   as the JAX package on one device) against the run without it: the
+   same step count and each loss within 1e-4; and with data_parallel
+   over devices=[cuda:0] * 2 (the branch several cards take: the sharded
+   step on make_mesh(2, 1)) against the run without it: the sharded
+   step built once, the same step count and each loss within rel 2e-4.
+   The ms of a sharded and an unsharded step.
+14. fidelity: main_search fidelity --device cuda (the f32 engine, every
+   served kernel's f32 route) on a torch checkpoint of make_model's
+   arch0 (BatchNorm perturbed, 19 classes) against a golden made by the
+   unfolded model in f32 on the CPU (normalize, pad, forward, bilinear
+   with align_corners, crop), at the drill's 56x72 and at 1024x2048,
+   each held to --max-dlogit 1e-3; each worst max|dlogit| printed.
 
 Prints the kernels JSON line (each row also with its launches on
 template0's path) and the card's name and power limit, then, last,
@@ -276,7 +304,13 @@ without it. Phase 12's (a)-(e) join them (supernet_control): (a) on one
 round of each run with the snapshot's baseline rounded, (b) and (c) with
 the vectorised and the sharded step's outputs rounded, (d) with the
 fleet's workers training from the next worker's seed, (e) with the
-supernet's masks rolled to the other genotype.
+supernet's masks rolled to the other genotype. Phase 13's four join
+them: the sharded step under ghost BN (each shard normalizing by its own
+moments), the sharded eval with every shard on the first shard's rows,
+run_training's one-card data_parallel run from the next seed (a control
+that any code fails: it shows only that the check reads the losses),
+its run over two logical shards under ghost BN; and phase 14's two,
+on the checkpoint of the next seed.
 The checks that hold kernels against kernels (sharded or data mode
 against the unsharded engine) and phase 10's card against the CPU are
 not in it: the rounding moves both sides alike.
@@ -2729,6 +2763,8 @@ def phase_control(torch, bits: int) -> dict:
     res.update(handoff_control(torch, frames, bits))
     res.update(search_control(torch, bits))
     res.update(supernet_control(torch, bits))
+    res.update(data_parallel_control(torch))
+    res.update(fidelity_control(torch))
     return res
 
 
@@ -3600,13 +3636,16 @@ POP_SHARDS = 4
 CM_SHARE = 0.002
 # (d) the fleet's rewards against proxy_train one genotype after another,
 # at FLEET_EPOCHS (the phase's 16 stage-1 epochs cut to 4: the check is
-# placement and seeds, not the proxy); the card's proxy trainings are not
-# bit-reproducible (the same genotypes and seeds run twice one after
-# another moved a reward by 4.2e-3 at 16 epochs on an H100 80GB HBM3 at
-# 700 W), so FLEET_TOL holds a reward in [0, 1] to about twice that
+# placement and seeds, not the proxy). With PyTorch's default algorithms
+# the card's proxy trainings are not bit-reproducible (the same genotypes
+# and seeds run twice one after another moved a reward by 4.2e-3 at 16
+# epochs, by 2.9e-5 to 7.7e-5 at 4, on an H100 80GB HBM3 at 700 W); under
+# deterministic algorithms they are (spread 0 in three runs, the fleet
+# equal to sequential in two), so both sides run that way and FLEET_TOL
+# is that spread
 FLEET_WORKERS = 4
 FLEET_EPOCHS = (4, 0)
-FLEET_TOL = 1e-2
+FLEET_TOL = 0.0
 # (e) tests/test_supernet.py:239-250: its genotypes and its config
 FIDELITY_REAL = [[3, [1, 1, 4, 6], [2, 2, 6, 5], [3, 0, 7, 8]],
                  [[0, 0], [1, 0], [3, 4]]]
@@ -3879,27 +3918,18 @@ def population_checks(torch, cfg, bits=None):
 def fleet_check(torch, cfg, bits=None):
     """(d) One round of run_fleet_search on [cuda:0] * FLEET_WORKERS
     against search.proxy_train run one genotype after another on fresh
-    loaders with the records' genotypes and the workers' seeds. With
-    ``bits`` (a control) the fleet's workers train from the next
-    worker's seed. -> ((what, ok, detail), numbers)."""
+    loaders with the records' genotypes and the workers' seeds, both
+    under deterministic algorithms (``deterministic``), where the card's
+    proxy training is bit-reproducible; the sequential run twice, its
+    spread printed. Without ``bits`` the sequential pair also runs with
+    PyTorch's default algorithms, which are not, and prints its spread
+    and time beside. With ``bits`` (a control) the fleet's workers train
+    from the next worker's seed. -> ((what, ok, detail), numbers)."""
     from segtpu_torch import search
     from segtpu_torch.data.datasets import SegmentationDataset
     from segtpu_torch.parallel.fleet import run_fleet_search
     ds = SegmentationDataset(cfg.data_root, cfg.train_list)
     proxy_train = search.proxy_train
-    if bits is not None:
-        def shifted(*a, rng_seed, **kw):
-            return proxy_train(*a, rng_seed=rng_seed + 1, **kw)
-        search.proxy_train = shifted
-    try:
-        (saver, secs, peak) = timed(torch, lambda: run_fleet_search(
-            cfg, devices=[torch.device("cuda", 0)] * FLEET_WORKERS,
-            dataset=ds))
-    finally:
-        search.proxy_train = proxy_train
-    _, enc, loaders = search.search_setup(cfg, ds, None, "cuda")
-    c_train = search._cache_taps(enc, loaders["cache_train"])
-    c_val = search._cache_taps(enc, loaders["cache_val"])
 
     def sequential():
         out = []
@@ -3910,19 +3940,63 @@ def fleet_check(torch, cfg, bits=None):
                 fresh["val"], rng_seed=cfg.seed + i)))
         return out
 
-    seq, seq_s, _ = timed(torch, sequential)
-    again = sequential()
+    with deterministic(torch):
+        if bits is not None:
+            def shifted(*a, rng_seed, **kw):
+                return proxy_train(*a, rng_seed=rng_seed + 1, **kw)
+            search.proxy_train = shifted
+        try:
+            (saver, secs, peak) = timed(torch, lambda: run_fleet_search(
+                cfg, devices=[torch.device("cuda", 0)] * FLEET_WORKERS,
+                dataset=ds))
+        finally:
+            search.proxy_train = proxy_train
+        _, enc, loaders = search.search_setup(cfg, ds, None, "cuda")
+        c_train = search._cache_taps(enc, loaders["cache_train"])
+        c_val = search._cache_taps(enc, loaders["cache_val"])
+        seq, seq_s, _ = timed(torch, sequential)
+        again = sequential()
     got = [r["reward"] for r in saver.history]
     err = max(abs(g - w) for g, w in zip(got, seq))
     spread = max(abs(g - w) for g, w in zip(again, seq))
+    nums = {"fleet_s": secs, "sequential_s": seq_s, "fleet_peak": peak,
+            "fleet_rewards": got, "sequential_rewards": seq, "err": err,
+            "sequential_again": again, "spread": spread}
+    if bits is None:
+        dflt, dflt_s, _ = timed(torch, sequential)
+        dflt_again = sequential()
+        nums.update(default_rewards=dflt, default_again=dflt_again,
+                    default_s=dflt_s, default_spread=max(
+                        abs(g - w) for g, w in zip(dflt_again, dflt)))
+        print(f"[supernet] proxy_train one genotype after another, twice: "
+              f"spread {spread!r} in {seq_s:.2f} s under deterministic "
+              f"algorithms, {nums['default_spread']!r} in {dflt_s:.2f} s "
+              f"with PyTorch's defaults")
     ok = (len(got) == FLEET_WORKERS and err <= FLEET_TOL
           and all(r["status"] == "ok" for r in saver.history))
     return ((f"fleet of {FLEET_WORKERS} vs sequential proxy_train", ok,
              f"rewards {got!r} against {seq!r}: max |d| {err!r} (limit "
-             f"{FLEET_TOL})"),
-            {"fleet_s": secs, "sequential_s": seq_s, "fleet_peak": peak,
-             "fleet_rewards": got, "sequential_rewards": seq, "err": err,
-             "sequential_again": again, "spread": spread})
+             f"{FLEET_TOL}), sequential against itself {spread!r}"), nums)
+
+
+# cuBLAS's workspace as deterministic algorithms need it (PyTorch reads
+# it when cuBLAS first runs): set before any work on the card
+CUBLAS_WORKSPACE = ":4096:8"
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """torch.use_deterministic_algorithms(True) and cuDNN's deterministic
+    algorithms, both restored after."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic = saved[1]
 
 
 def fidelity_check(torch, bits=None):
@@ -4073,7 +4147,407 @@ def supernet_control(torch, bits: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: data-parallel training on logical shards of the one card
+# ---------------------------------------------------------------------------
+
+# the sharded step against the unsharded step on the whole batch, by
+# tests/test_torch_data_parallel.py's rule: the loss at DP_LOSS_RTOL; by
+# group the parameters, traces, Polyak averages and running stats within
+# max(DP_FLOOR x the unsharded step's move, DP_SPREAD x its own spread on
+# the batch in reversed order)
+DP_SHARDS = 2
+DP_LOSS_RTOL = 2e-4
+DP_SPREAD = 4
+DP_FLOOR = {"params": 1e-2, "trace": 1e-2, "polyak": 1e-2, "stats": 1e-3}
+DP_TIMED = 3
+# run_training with data_parallel on one card against the run without it:
+# each step's loss within DP_RUN_RTOL (cuDNN's backward is not
+# deterministic); over two logical shards of the card, within
+# DP_LOSS_RTOL
+DP_RUN_RTOL = 1e-4
+DP_RUN_IMAGES = 32
+
+
+def dp_batch():
+    """phase train's batch with more ignored pixels in the first shard's
+    images (their top quarter), so the shards' valid counts differ."""
+    b = train_batch()
+    b["label"][:train_config().batch_size // DP_SHARDS, :128] = 255
+    return b
+
+
+def _local_moments(yf):
+    """Ghost BN, the control's sharded-step fault: each shard's own
+    moments."""
+    mean = yf.mean((0, 2, 3))
+    var = (yf - mean[:, None, None]).square().mean((0, 2, 3))
+    return mean, var, yf.numel() // yf.shape[1]
+
+
+@contextlib.contextmanager
+def ghost_bn(on: bool):
+    from segtpu_torch.core import layers
+    saved = layers._batch_moments
+    if on:
+        layers._batch_moments = _local_moments
+    try:
+        yield
+    finally:
+        layers._batch_moments = saved
+
+
+def dp_snap(state, loss=None):
+    return {"params": {k: v.detach().clone() for k, v in state.params.items()},
+            "trace": {k: v.clone() for k, v in state.opt_state.items()},
+            "polyak": {k: v.clone() for k, v in state.polyak.items()},
+            "stats": {k: v.clone() for k, v in state.stats.items()},
+            "loss": None if loss is None else float(loss)}
+
+
+def dp_step(torch, model, batch, mesh=None, ghost=False):
+    """(state before, state after, the step's state): one step of
+    train_setup's step, sharded over ``mesh`` when given, on a copy of
+    ``model``."""
+    import copy
+    from segtpu_torch.parallel import make_sharded_train_step
+    state, step = train_setup(torch, copy.deepcopy(model))
+    if mesh is not None:
+        step = make_sharded_train_step(step, mesh)
+    before = dp_snap(state)
+    with ghost_bn(ghost):
+        state, loss = step(state, batch)
+    return before, dp_snap(state, loss), state
+
+
+def _dist(torch, a, b, group):
+    return float(torch.sqrt(sum(
+        (a[k].double() - b[k].double()).square().sum()
+        for k in a if k.startswith(group + "."))))
+
+
+def dp_compare(torch, want, reverse, before, got):
+    """(worst ratio of error to limit, rows): the sharded step's state
+    against the unsharded step's by the rule above."""
+    rows = [("loss", None, abs(got["loss"] - want["loss"])
+             / abs(want["loss"]), DP_LOSS_RTOL)]
+    for key in ("params", "trace", "polyak", "stats"):
+        for group in ("encoder", "decoder"):
+            spread = _dist(torch, reverse[key], want[key], group)
+            update = _dist(torch, want[key], before[key], group)
+            rows.append((key, group, _dist(torch, got[key], want[key], group),
+                         max(DP_FLOOR[key] * update, DP_SPREAD * spread)))
+    return max(err / limit for _, _, err, limit in rows), rows
+
+
+def dp_step_check(torch, model, batch, mesh, ghost=False):
+    """(what, ok, detail), worst ratio: the sharded step against the
+    unsharded step on the whole batch."""
+    rev = {k: np.ascontiguousarray(v[::-1]) for k, v in batch.items()}
+    before, want, _ = dp_step(torch, model, batch)
+    reverse = dp_step(torch, model, rev)[1]
+    got = dp_step(torch, model, batch, mesh, ghost)[1]
+    worst, rows = dp_compare(torch, want, reverse, before, got)
+    return ((f"sharded train step on {DP_SHARDS} logical shards vs "
+             f"unsharded", worst <= 1.0,
+             f"worst error / limit {worst!r}: " + ", ".join(
+                 f"{k}{'' if g is None else ' ' + g} {e:.3g}/{lim:.3g}"
+                 for k, g, e, lim in rows)), worst)
+
+
+def dp_eval_check(torch, state, batch, mesh, fault=False):
+    """(what, ok, detail): the sharded eval's confusion matrix against
+    the unsharded one's on the trained state. ``fault`` (a control):
+    every shard evaluates the first shard's rows."""
+    from segtpu_torch.engine.trainer import eval_params_stats, make_eval_step
+    from segtpu_torch.parallel import make_sharded_eval_step, mesh as pm
+    ev = make_eval_step(state.model.genotype, num_classes=K)
+    params, stats = eval_params_stats(state)
+    shard_batch = pm.shard_batch
+    if fault:
+        pm.shard_batch = lambda m, b: [shard_batch(m, b)[0]] * DP_SHARDS
+    try:
+        got = make_sharded_eval_step(ev, mesh)(params, stats, batch)
+    finally:
+        pm.shard_batch = shard_batch
+    want = ev(params, stats, batch)
+    diff = int((got - want).abs().sum())
+    return (f"sharded eval on {DP_SHARDS} logical shards vs unsharded",
+            bool(torch.equal(got, want)),
+            f"confusion matrices differ in {diff} of {int(want.sum())} "
+            f"counts")
+
+
+def dp_run_training(torch, tmp, data_parallel: bool, seed: int,
+                    devices=None):
+    """(per-step losses, state, seconds, the data axis of each sharded
+    step it built): run_training on the card, one epoch of
+    SyntheticDataset(DP_RUN_IMAGES) at TrainConfig's batch and crop,
+    validated once, sharded over ``devices`` when given."""
+    import segtpu_torch.train as tr
+    from segtpu_torch.data.datasets import BatchLoader, SyntheticDataset
+    from segtpu_torch.models import ARCHS
+    cfg = dataclasses.replace(
+        train_config(), num_epochs=1, val_every=1,
+        data_parallel=data_parallel, seed=seed,
+        snapshot_dir=os.path.join(tmp, f"dp{data_parallel}{devices}"))
+    ds = SyntheticDataset(n=DP_RUN_IMAGES, hw=cfg.crop_size, num_classes=K)
+    loaders = [BatchLoader(ds, batch_size=cfg.batch_size, crop=cfg.crop_size,
+                           train=t) for t in (True, False)]
+    real, losses = tr.hard_sync, []
+    real_sharded, meshes = tr.make_sharded_train_step, []
+
+    def sharding(step, mesh):
+        meshes.append(mesh.shape["data"])
+        return real_sharded(step, mesh)
+
+    def recording(loss):
+        # run_training syncs on each step's loss
+        real(loss)
+        losses.append(float(loss))
+
+    tr.hard_sync, tr.make_sharded_train_step = recording, sharding
+    try:
+        t0 = time.perf_counter()
+        _, state = tr.run_training(ARCHS["arch0"], *loaders, cfg,
+                                   device="cuda", devices=devices)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        tr.hard_sync, tr.make_sharded_train_step = real, real_sharded
+    return losses, state, secs, meshes
+
+
+def dp_run_checks(torch, tmp, control: bool = False):
+    """[(what, ok, detail)], numbers: run_training with data_parallel on
+    the one card (unsharded, as the JAX package on one device), and over
+    DP_SHARDS logical shards of it (``devices``), each against the run
+    without it. ``control``: the one-card run's model from the next
+    seed, the sharded run under ghost BN."""
+    base, _, base_s, _ = dp_run_training(torch, tmp, False, TRAIN_SEED)
+    n = DP_RUN_IMAGES // train_config().batch_size
+    checks, nums = [], {"unsharded_losses": base, "unsharded_seconds": base_s}
+    runs = ((f"on {torch.cuda.device_count()} card", None, DP_RUN_RTOL, [],
+             TRAIN_SEED + control, False),
+            (f"over {DP_SHARDS} logical shards of the card",
+             dp_mesh(torch).devices, DP_LOSS_RTOL, [DP_SHARDS], TRAIN_SEED,
+             control))
+    for key, (where, devices, rtol, meshes, seed, ghost) in zip(
+            ("run_training", "run_training_sharded"), runs):
+        with ghost_bn(ghost):
+            got, state, secs, built = dp_run_training(
+                torch, tmp, True, seed, devices)
+        worst = max(abs(g - w) / abs(w) for g, w in zip(got, base))
+        ok = (built == meshes and len(got) == len(base) == n
+              and state.step == n and all(np.isfinite(got))
+              and worst <= rtol)
+        checks.append((f"run_training data_parallel {where} vs without", ok,
+                       f"sharded steps built {built}, {len(got)} steps, "
+                       f"losses {got!r} against {base!r}: worst rel "
+                       f"{worst!r} (limit {rtol})"))
+        nums[key] = {"losses": got, "worst_rel": worst, "seconds": secs,
+                     "sharded_steps_built": built}
+    return checks, nums
+
+
+def dp_step_ms(torch, model, batch, mesh=None):
+    """ms a step over DP_TIMED steps after one, CUDA events."""
+    import copy
+    from segtpu_torch.parallel import make_sharded_train_step
+    state, step = train_setup(torch, copy.deepcopy(model))
+    if mesh is not None:
+        step = make_sharded_train_step(step, mesh)
+    state, _ = step(state, batch)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(DP_TIMED):
+        state, _ = step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / DP_TIMED
+
+
+def dp_mesh(torch):
+    from segtpu_torch.parallel import make_mesh
+    return make_mesh(DP_SHARDS, 1, devices=[torch.device("cuda", 0)]
+                     * DP_SHARDS)
+
+
+def phase_data_parallel(torch):
+    """Phase 13 (see the module doc). Returns its numbers for the JSON."""
+    import tempfile
+    torch.cuda.empty_cache()
+    gpu = gpu_line()
+    t_phase = time.perf_counter()
+    batch = dp_batch()
+    gbatch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    model = train_model(torch).cuda()
+    mesh = dp_mesh(torch)
+    res = {"gpu": gpu, "shards": DP_SHARDS}
+    with tf32(torch, False):
+        step_chk, res["step_worst"] = dp_step_check(torch, model, batch,
+                                                    mesh)
+        state = dp_step(torch, model, gbatch)[2]
+        eval_chk = dp_eval_check(torch, state, gbatch, mesh)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with tempfile.TemporaryDirectory(dir="chiprun_out") as tmp:
+            run_chks, res["run_training"] = dp_run_checks(torch, tmp)
+        res["unsharded_ms"] = dp_step_ms(torch, model, gbatch)
+        res["sharded_ms"] = dp_step_ms(torch, model, gbatch, mesh)
+    for what, ok, detail in (step_chk, eval_chk, *run_chks):
+        print(f"[data_parallel] {what}: {detail} on {gpu}")
+        check(ok, f"{what}: {detail}")
+    print(f"[data_parallel] arch0 aux {dims(batch)} TF32 off: unsharded "
+          f"{res['unsharded_ms']:.4f} ms a step, sharded over {DP_SHARDS} "
+          f"logical shards {res['sharded_ms']:.4f} ms ({DP_TIMED} timed "
+          f"after 1); run_training data_parallel one epoch "
+          f"{res['run_training']['run_training']['seconds']:.2f} s, over "
+          f"{DP_SHARDS} logical shards "
+          f"{res['run_training']['run_training_sharded']['seconds']:.2f} s, "
+          f"against {res['run_training']['unsharded_seconds']:.2f} s "
+          f"without, on {gpu}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[data_parallel] phase: {res['phase_s']:.2f} s on {gpu}")
+    return res
+
+
+def data_parallel_control(torch) -> dict:
+    """The control's data-parallel checks: the sharded step under ghost
+    BN, the sharded eval with every shard on the first shard's rows,
+    run_training's one-card data_parallel run from the next seed and its
+    run over logical shards under ghost BN. Returns {check: failed}."""
+    import tempfile
+    batch = dp_batch()
+    gbatch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    model = train_model(torch).cuda()
+    mesh = dp_mesh(torch)
+    with tf32(torch, False):
+        checks = [dp_step_check(torch, model, batch, mesh, ghost=True)[0]]
+        state = dp_step(torch, model, gbatch)[2]
+        checks.append(dp_eval_check(torch, state, gbatch, mesh, fault=True))
+        os.makedirs("chiprun_out", exist_ok=True)
+        with tempfile.TemporaryDirectory(dir="chiprun_out") as tmp:
+            checks += dp_run_checks(torch, tmp, control=True)[0]
+    return {what: must_fail(what, lambda: check(ok, f"{what}: {detail}"))
+            for what, ok, detail in checks}
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the CLI's fidelity on the card
+# ---------------------------------------------------------------------------
+
+# the drill's image (tests/test_fidelity_drill.py: 56x72, padded to
+# 64x96) gated at FIDELITY_MAX_DLOGIT, and the headline frame
+FIDELITY_SHAPES = ((56, 72), (H, W))
+FIDELITY_MAX_DLOGIT = 1e-3
+
+
+def fidelity_files(torch, tmp, hw, seed: int):
+    """(checkpoint, golden): a torch checkpoint of make_model's arch0 (K =
+    19, BatchNorm perturbed) from ``seed``, and the golden of a seeded
+    uint8 frame of ``hw``: the unfolded model's f32 logits on the CPU
+    (normalized, padded to the stride, bilinear with align_corners,
+    cropped), [H, W, K]."""
+    import torch.nn.functional as F
+    from segtpu_torch.utils.helpers import prepare_img
+    model = make_model(torch, seed=seed).eval()
+    ckpt = os.path.join(tmp, f"arch0_seed{seed}.ckpt")
+    torch.save(model.state_dict(), ckpt)
+    h, w = hw
+    hp, wp = -(-h // 32) * 32, -(-w // 32) * 32
+    img = np.random.default_rng(31).integers(0, 256, (h, w, 3),
+                                             dtype=np.uint8)
+    x = np.pad(prepare_img(img), ((0, hp - h), (0, wp - w), (0, 0)))
+    with torch.no_grad():
+        logits = model(torch.from_numpy(np.ascontiguousarray(
+            np.transpose(x[None], (0, 3, 1, 2)))))
+        logits = F.interpolate(logits, size=(hp, wp), mode="bilinear",
+                               align_corners=True)[:, :, :h, :w]
+    golden = os.path.join(tmp, f"golden_{h}x{w}.npz")
+    np.savez(golden, image=img,
+             logits=np.ascontiguousarray(
+                 np.transpose(logits[0].numpy(), (1, 2, 0))))
+    return ckpt, golden
+
+
+def run_fidelity(torch, ckpt, golden, max_dlogit=None):
+    """(exit code, worst max|dlogit|, output) of ``main_search fidelity``
+    on the card."""
+    import io
+    from segtpu_torch import main_search
+    argv = ["fidelity", "--arch", "arch0", "--num-classes", str(K), "--ckpt",
+            ckpt, "--golden", golden, "--device", "cuda"]
+    if max_dlogit is not None:
+        argv += ["--max-dlogit", str(max_dlogit)]
+    out, rc = io.StringIO(), 0
+    with contextlib.redirect_stdout(out):
+        try:
+            main_search.main(argv)
+        except SystemExit as e:
+            rc = e.code
+    text = out.getvalue()
+    worst = float(text.rsplit("worst max|dlogit|:", 1)[1].split()[0])
+    return rc, worst, text
+
+
+def fidelity_checks(torch, tmp, wrong: bool = False):
+    """[(what, ok, detail)], numbers: the CLI's fidelity at each of
+    FIDELITY_SHAPES with --max-dlogit FIDELITY_MAX_DLOGIT; ``wrong`` (a
+    control): the checkpoint of the next seed against the golden."""
+    checks, nums = [], {}
+    for hw in FIDELITY_SHAPES:
+        ckpt, golden = fidelity_files(torch, tmp, hw, 0)
+        if wrong:
+            ckpt, _ = fidelity_files(torch, tmp, (32, 32), 1)
+        t0 = time.perf_counter()
+        rc, worst, text = run_fidelity(torch, ckpt, golden,
+                                       FIDELITY_MAX_DLOGIT)
+        secs = time.perf_counter() - t0
+        what = f"fidelity {hw[0]}x{hw[1]} f32 on the card vs the CPU golden"
+        checks.append((what, rc == 0 and worst <= FIDELITY_MAX_DLOGIT,
+                       f"exit {rc}, worst max|dlogit| {worst!r} (limit "
+                       f"{FIDELITY_MAX_DLOGIT})"))
+        nums[f"{hw[0]}x{hw[1]}"] = {"worst": worst, "rc": rc,
+                                    "seconds": secs, "output": text}
+    return checks, nums
+
+
+def phase_fidelity(torch):
+    """Phase 14 (see the module doc). Returns its numbers for the JSON."""
+    import tempfile
+    torch.cuda.empty_cache()
+    gpu = gpu_line()
+    t_phase = time.perf_counter()
+    os.makedirs("chiprun_out", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="chiprun_out") as tmp:
+        checks, nums = fidelity_checks(torch, tmp)
+    for what, ok, detail in checks:
+        print(f"[fidelity] {what}: {detail} on {gpu}")
+        check(ok, f"{what}: {detail}")
+    for shape, r in nums.items():
+        print(f"[fidelity] {shape}: worst max|dlogit| {r['worst']!r} "
+              f"({r['seconds']:.2f} s with the golden's checks) on {gpu}")
+    res = {"gpu": gpu, "shapes": nums,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"[fidelity] phase: {res['phase_s']:.2f} s on {gpu}")
+    return res
+
+
+def fidelity_control(torch) -> dict:
+    """The control's fidelity checks, on a wrong checkpoint. Returns
+    {check: failed}."""
+    import tempfile
+    os.makedirs("chiprun_out", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="chiprun_out") as tmp:
+        checks, _ = fidelity_checks(torch, tmp, wrong=True)
+    return {what: must_fail(what, lambda: check(ok, f"{what}: {detail}"))
+            for what, ok, detail in checks}
+
+
 def main() -> None:
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a card")
@@ -4165,6 +4639,8 @@ def main() -> None:
     train = phase_train(torch, frames)
     search = phase_search(torch)
     supernet = phase_supernet(torch)
+    data_parallel = phase_data_parallel(torch)
+    fidelity = phase_fidelity(torch)
     if "--profile" in sys.argv[1:]:
         profile(torch, seg, seg_t, frames)
         train["profile"] = profile_train(torch)
@@ -4183,7 +4659,8 @@ def main() -> None:
                        "launches": t_launches, "mask_agreement": t_rate,
                        "space_launches": t_space_launches},
                    "experiments": experiments, "train": train,
-                   "search": search, "supernet": supernet},
+                   "search": search, "supernet": supernet,
+                   "data_parallel": data_parallel, "fidelity": fidelity},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(gpu)

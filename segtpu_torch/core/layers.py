@@ -12,11 +12,18 @@ mode (``bn_train``), chosen by ``module.training``. The port's modules
 start in eval mode, as the JAX apply functions default to
 ``train=False``: training asks for batch statistics with ``.train()``.
 Padding is torch-style symmetric, as ``conv_apply`` builds it explicitly.
+
+Inside ``shard_context`` (the data-parallel train step,
+``parallel.mesh.make_sharded_train_step``) ``bn_train`` normalizes with
+the moments of the whole batch, every shard's partial sums combined, as
+XLA's reductions over a sharded batch give the JAX package's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn as nn
@@ -55,6 +62,80 @@ def bn_eval(y, scale, bias, mean, var):
     return yf.to(y.dtype)
 
 
+class ShardGroup:
+    """The shards of one data-parallel forward, one thread each, meeting
+    at every train BatchNorm. ``all_sum(rank, *xs)`` returns, for each of
+    ``xs``, the sum of every shard's in rank order, on that shard's
+    device (tensors moved by ``.to``, which autograd differentiates, or
+    Python numbers): a shard waits there until every shard has brought
+    its parts. A shard that fails calls ``abort()``, and the others'
+    waits raise ``threading.BrokenBarrierError`` instead of hanging."""
+
+    def __init__(self, n: int):
+        self.n = n
+        # two sets of slots, used in turn: a shard writes call k + 2's
+        # parts only after every shard has reached call k + 1, by then
+        # done reading call k's, so one wait a meeting is enough
+        self._slots = ([None] * n, [None] * n)
+        self._calls = [0] * n
+        self._barrier = threading.Barrier(n)
+
+    def all_sum(self, rank: int, *xs):
+        slots = self._slots[self._calls[rank] % 2]
+        self._calls[rank] += 1
+        slots[rank] = xs
+        self._barrier.wait()
+        parts = list(slots)
+        sums = []
+        for i, x in enumerate(xs):
+            if isinstance(x, torch.Tensor):
+                total = parts[0][i].to(x.device)
+                for p in parts[1:]:
+                    total = total + p[i].to(x.device)
+            else:
+                total = sum(p[i] for p in parts)
+            sums.append(total)
+        return sums[0] if len(sums) == 1 else tuple(sums)
+
+    def abort(self):
+        self._barrier.abort()
+
+
+_SHARD = threading.local()
+
+
+@contextlib.contextmanager
+def shard_context(group: ShardGroup, rank: int):
+    """This thread runs shard ``rank`` of ``group``: its train
+    BatchNorms normalize with the group's moments, and only rank 0
+    moves the running buffers."""
+    _SHARD.member = (group, rank)
+    try:
+        yield
+    finally:
+        _SHARD.member = None
+
+
+def _batch_moments(yf):
+    """(mean, biased variance, n) over N, H, W of the batch, or of the
+    whole sharded batch inside ``shard_context``: the mean from every
+    shard's sum, the variance from every shard's sum of squares about
+    that mean (the same two passes), n the whole batch's N*H*W."""
+    member = getattr(_SHARD, "member", None)
+    if member is None:
+        batch_mean = yf.mean((0, 2, 3))
+        batch_var = (yf - batch_mean[:, None, None]).square().mean(
+            (0, 2, 3))
+        return batch_mean, batch_var, yf.numel() // yf.shape[1]
+    group, rank = member
+    total, n = group.all_sum(rank, yf.sum((0, 2, 3)),
+                             yf.numel() // yf.shape[1])
+    batch_mean = total / n
+    batch_var = group.all_sum(rank, (yf - batch_mean[:, None, None]).square()
+                              .sum((0, 2, 3))) / n
+    return batch_mean, batch_var, n
+
+
 def bn_train(y, scale, bias, mean, var):
     """Train BatchNorm over N, H, W, in f32, rounded back to y's dtype.
 
@@ -64,15 +145,17 @@ def bn_train(y, scale, bias, mean, var):
     place, ``(1 - 0.1) * running + 0.1 * batch``, the variance unbiased
     by n / (n - 1) with n = N*H*W. Written out rather than
     ``F.batch_norm``, whose sum order and variance form differ from the
-    JAX package's ``bn_apply``."""
+    JAX package's ``bn_apply``. Inside ``shard_context`` the moments and
+    n are the whole sharded batch's, and the buffers move once, in rank
+    0's thread."""
     yf = y.float()
-    batch_mean = yf.mean((0, 2, 3))
-    batch_var = (yf - batch_mean[:, None, None]).square().mean((0, 2, 3))
-    n = y.numel() // y.shape[1]
-    with torch.no_grad():
-        unbiased = batch_var * (n / max(n - 1, 1))
-        mean.copy_((1 - BN_MOMENTUM) * mean + BN_MOMENTUM * batch_mean)
-        var.copy_((1 - BN_MOMENTUM) * var + BN_MOMENTUM * unbiased)
+    batch_mean, batch_var, n = _batch_moments(yf)
+    member = getattr(_SHARD, "member", None)
+    if member is None or member[1] == 0:
+        with torch.no_grad():
+            unbiased = batch_var * (n / max(n - 1, 1))
+            mean.copy_((1 - BN_MOMENTUM) * mean + BN_MOMENTUM * batch_mean)
+            var.copy_((1 - BN_MOMENTUM) * var + BN_MOMENTUM * unbiased)
     inv = torch.rsqrt(batch_var + BN_EPS) * scale
     shift = bias - batch_mean * inv
     return (yf * inv[:, None, None] + shift[:, None, None]).to(y.dtype)

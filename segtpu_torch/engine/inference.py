@@ -53,6 +53,7 @@ from segtpu_torch.models.fast_decoder import (FoldedMicroDecoder,
                                               fold_decoder)
 from segtpu_torch.models.fast_encoder import fold_encoder, mbv2_chw_sharded
 from segtpu_torch.parallel.collectives import halo_exchange, per_device
+from segtpu_torch.utils.cache import enable_compilation_cache
 from segtpu_torch.utils.helpers import (IMG_MEAN, IMG_SCALE, IMG_STD,
                                         resolve_device)
 
@@ -107,6 +108,8 @@ class Segmenter:
                  use_kernels: bool = True):
         if compute_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"compute_dtype is bf16 or f32, not {compute_dtype}")
+        # the kernels build once per machine, where the knobs say
+        enable_compilation_cache()
         self.device = resolve_device(device)
         self.align_corners = align_corners
         self.compute_dtype = compute_dtype

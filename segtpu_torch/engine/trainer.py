@@ -74,11 +74,13 @@ def eval_params_stats(state: TrainState):
     return params, state.stats
 
 
-def cross_entropy(logits, labels, *, num_classes: int):
-    """Mean CE over the pixels whose label lies in [0, K); logits
-    [N, K, h, w] are upsampled to the labels' [N, H, W] first, in f32.
-    Written out (not ``F.cross_entropy(ignore_index=255)``): every label
-    outside [0, K) is ignored, as in the JAX package."""
+def _nll_sum_count(logits, labels, *, num_classes: int):
+    """(sum of the NLL over the pixels whose label lies in [0, K), their
+    count): the parts of the JAX package's ``cross_entropy``, which is
+    their quotient; logits [N, K, h, w] are upsampled to the labels'
+    [N, H, W] first, in f32. Written out (not
+    ``F.cross_entropy(ignore_index=255)``): every label outside [0, K) is
+    ignored, as in the JAX package."""
     if logits.shape[-2:] != labels.shape[-2:]:
         logits = resize_bilinear(logits, labels.shape[-2:],
                                  compute_dtype=torch.float32)
@@ -88,33 +90,68 @@ def cross_entropy(logits, labels, *, num_classes: int):
     logp = torch.log_softmax(logits, dim=1)
     nll = -torch.gather(logp, 1, safe[:, None])[:, 0]
     nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / valid.sum().clamp_min(1)
+    return nll.sum(), valid.sum()
 
 
-def kd_loss(student_logits, teacher_logits, *, temperature: float = 1.0):
-    """Soft-target distillation: the teacher's softmax against the
-    student's log-softmax at ``temperature``, summed over classes and
-    averaged over pixels, times temperature^2."""
+def _kd_sum_count(student_logits, teacher_logits):
+    """(sum over pixels of the teacher's softmax against the student's
+    log-softmax, summed over classes, the number of pixels): the parts of
+    the JAX package's ``kd_loss`` at temperature 1, as its
+    ``segmentation_loss`` calls it."""
     if student_logits.shape[-2:] != teacher_logits.shape[-2:]:
         student_logits = resize_bilinear(
             student_logits, teacher_logits.shape[-2:],
             compute_dtype=torch.float32)
-    t = temperature
-    p_t = torch.softmax(teacher_logits.float() / t, dim=1)
-    logp_s = torch.log_softmax(student_logits.float() / t, dim=1)
-    return -(p_t * logp_s).sum(1).mean() * (t * t)
+    p_t = torch.softmax(teacher_logits.float(), dim=1)
+    logp_s = torch.log_softmax(student_logits.float(), dim=1)
+    per_pixel = -(p_t * logp_s).sum(1)
+    return per_pixel.sum(), per_pixel.new_tensor(per_pixel.numel())
+
+
+def segmentation_loss_terms(logits, aux_logits, labels, *, num_classes: int,
+                            aux_weight: float = 0.3, teacher_logits=None,
+                            kd_coeff: float = 0.0):
+    """``segmentation_loss``'s terms for one shard of a batch, as
+    (weight, sum, count): the main head's NLL (weight 1), each aux
+    head's (``aux_weight``), and the KD term's (``kd_coeff``) when it is
+    on. ``combine_loss_terms`` makes the loss of the whole batch from
+    every shard's terms."""
+    terms = [(1.0, *_nll_sum_count(logits, labels, num_classes=num_classes))]
+    terms += [(aux_weight, *_nll_sum_count(a, labels, num_classes=num_classes))
+              for a in aux_logits]
+    if teacher_logits is not None and kd_coeff > 0:
+        terms.append((kd_coeff, *_kd_sum_count(logits, teacher_logits)))
+    return terms
+
+
+def combine_loss_terms(shard_terms, device):
+    """The loss of a batch split into shards, from each shard's
+    ``segmentation_loss_terms``: each term is the shards' sums over the
+    shards' counts, both summed in shard order on ``device`` (not the
+    mean of the shards' means, which differs as soon as the shards hold
+    different numbers of ignored pixels), and the terms weighted and
+    added in order."""
+    loss = None
+    for parts in zip(*shard_terms):
+        total, count = parts[0][1].to(device), parts[0][2].to(device)
+        for _, s, c in parts[1:]:
+            total, count = total + s.to(device), count + c.to(device)
+        value = total / count.clamp_min(1)
+        loss = value if loss is None else loss + parts[0][0] * value
+    return loss
 
 
 def segmentation_loss(logits, aux_logits, labels, *, num_classes: int,
                       aux_weight: float = 0.3, teacher_logits=None,
                       kd_coeff: float = 0.0):
-    loss = cross_entropy(logits, labels, num_classes=num_classes)
-    for a in aux_logits:
-        loss = loss + aux_weight * cross_entropy(a, labels,
-                                                 num_classes=num_classes)
-    if teacher_logits is not None and kd_coeff > 0:
-        loss = loss + kd_coeff * kd_loss(logits, teacher_logits)
-    return loss
+    """Mean CE of the main head + aux_weight x each aux head's [+
+    kd_coeff x KD]: ``combine_loss_terms`` of the batch as one shard."""
+    return combine_loss_terms(
+        [segmentation_loss_terms(logits, aux_logits, labels,
+                                 num_classes=num_classes,
+                                 aux_weight=aux_weight,
+                                 teacher_logits=teacher_logits,
+                                 kd_coeff=kd_coeff)], logits.device)
 
 
 def _device(module: nn.Module) -> torch.device:
@@ -154,6 +191,18 @@ def _apply_update(state: TrainState, optimizer, loss,
     return state
 
 
+@dataclasses.dataclass
+class StepParts:
+    """What ``parallel.mesh.make_sharded_train_step`` needs of a
+    ``make_train_step`` step: its genotype, ``terms(forward, batch,
+    device)`` (one shard's ``segmentation_loss_terms``, the model run by
+    ``forward``) and ``update(state, loss)`` (the gradients of the whole
+    batch's loss, the optimizer's step, Polyak, step + 1)."""
+    genotype: object
+    terms: object
+    update: object
+
+
 def make_train_step(genotype, optimizer, *, num_classes: int,
                     aux_weight: float = 0.3, kd_coeff: float = 0.0,
                     freeze_encoder: bool = False, polyak_decay: float = 0.99):
@@ -164,24 +213,38 @@ def make_train_step(genotype, optimizer, *, num_classes: int,
     ``freeze_encoder``: the encoder runs in eval mode without gradients
     (its parameters still take weight decay and momentum on zero
     gradients, as under optax). Polyak averaging runs when the state
-    keeps an average (``init_train_state(do_polyak=True)``)."""
+    keeps an average (``init_train_state(do_polyak=True)``). The step
+    carries its ``StepParts`` as ``step.parts``."""
+    loss_kw = dict(num_classes=num_classes, aux_weight=aux_weight,
+                   kd_coeff=kd_coeff)
+
+    def forward(model, batch, dev):
+        """(logits, aux logits, labels, teacher logits or None)."""
+        logits, aux = model(images_to(batch["image"], dev), with_aux=True,
+                            freeze_encoder=freeze_encoder)
+        teacher = batch.get("teacher")
+        return (logits, aux, _labels_to(batch["label"], dev),
+                None if teacher is None else torch.as_tensor(teacher).to(dev))
+
+    def terms(model, batch, dev):
+        logits, aux, label, teacher = forward(model, batch, dev)
+        return segmentation_loss_terms(logits, aux, label,
+                                       teacher_logits=teacher, **loss_kw)
+
+    def update(state, loss):
+        return _apply_update(state, optimizer, loss, polyak_decay)
 
     def step(state: TrainState, batch):
         model = state.model
         _check_genotype(model, genotype)
         dev = _device(model)
         model.train()
-        logits, aux = model(images_to(batch["image"], dev), with_aux=True,
-                            freeze_encoder=freeze_encoder)
-        teacher = batch.get("teacher")
-        loss = segmentation_loss(
-            logits, aux, _labels_to(batch["label"], dev),
-            num_classes=num_classes, aux_weight=aux_weight,
-            teacher_logits=None if teacher is None
-            else torch.as_tensor(teacher).to(dev), kd_coeff=kd_coeff)
-        return _apply_update(state, optimizer, loss, polyak_decay), \
-            loss.detach()
+        logits, aux, label, teacher = forward(model, batch, dev)
+        loss = segmentation_loss(logits, aux, label, teacher_logits=teacher,
+                                 **loss_kw)
+        return update(state, loss), loss.detach()
 
+    step.parts = StepParts(genotype, terms, update)
     return step
 
 

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``. A
 plain C interface keeps PyTorch's headers out of the compile: a source
 builds in seconds instead of the minutes an extension that includes
-``torch/extension.h`` takes. Libraries go to ``segtpu_torch/_build/``
-(git-ignored), named by a hash of their source, so an edited source is
-rebuilt and an unchanged one is reused. ``build()`` starts one ``nvcc``
+``torch/extension.h`` takes. Libraries go to ``BUILD_DIR``, by default
+``segtpu_torch/_build/`` (git-ignored; ``utils.cache`` moves it),
+named by a hash of their source, so an edited source is rebuilt and an
+unchanged one is reused. ``build()`` starts one ``nvcc``
 per missing library, all at once, and waits for them together.
 
 There is no fallback: a missing ``nvcc`` or a failed compile raises.
@@ -26,7 +27,8 @@ from typing import Dict, Iterable
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "_build"
+DEFAULT_BUILD_DIR = PKG_DIR / "_build"
+BUILD_DIR = DEFAULT_BUILD_DIR   # set by utils.cache.enable_compilation_cache
 KERNEL_SOURCES = ("front", "upsample_argmax", "conv_chw", "inv_res",
                   "pointwise", "cell", "resize",
                   # the experiments' kernels (segtpu_torch.scripts)

@@ -4,16 +4,20 @@ Subcommands: ``search`` (the NAS loop: per genotype, or with
 ``--supernet K`` the masked population, sharded over ``--pop-devices D``,
 or with ``--fleet`` one genotype a device), ``train`` (a fixed
 architecture), ``eval`` (mIoU over a manifest), ``infer`` (one image
-through the served engine and its kernels). Flags are the JAX package's
-and map onto ``config.SearchConfig`` and ``train.TrainConfig``; every
-subcommand also takes ``--device`` (default ``cuda``, which raises where
-there is no card). ``bench`` and ``fidelity`` are not ported yet
-(ROADMAP.md Queue A items 1 and 8).
+through the served engine and its kernels), ``fidelity`` (the f32
+engine's full-resolution logits against golden ``.npz`` files). Flags
+are the JAX package's and map onto ``config.SearchConfig`` and
+``train.TrainConfig``; every subcommand also takes ``--device`` (default
+``cuda``, which raises where there is no card). ``main`` first points
+the kernel build at its directory (``utils.cache``: ``SEGTPU_CACHE_DIR``,
+``SEGTPU_NO_CACHE``). The JAX package's ``bench`` is not ported.
 
 Usage:
     python -m segtpu_torch.main_search search --synthetic --num-iters 5
     python -m segtpu_torch.main_search search --synthetic --supernet 8
     python -m segtpu_torch.main_search infer --arch arch0 --image img.npy
+    python -m segtpu_torch.main_search fidelity --ckpt arch0.ckpt \
+        --golden g0.npz --max-dlogit 1e-3
 """
 
 from __future__ import annotations
@@ -223,9 +227,39 @@ def cmd_eval(args):
     print(f"mIoU: {mean_iou(cm):.4f}")
 
 
+def cmd_fidelity(args):
+    """Per-pixel logit fidelity against golden ``.npz`` files holding
+    ``image`` (uint8 HWC) and ``logits`` (f32 [H, W, K], the reference's
+    full-resolution logits for that image): the f32 engine's logits
+    (bilinear, cropped), their worst |difference| and argmax agreement
+    per file; exit 1 above ``--max-dlogit``."""
+    import numpy as np
+    import torch
+    from segtpu_torch.engine import Segmenter
+
+    seg = Segmenter(_model(args, _genotype(args.arch), "cpu"),
+                    compute_dtype=torch.float32, device=args.device)
+    worst = 0.0
+    for path in args.golden:
+        g = np.load(path)
+        img, want = g["image"], g["logits"]
+        got = np.transpose(seg.predict(img, return_logits=True), (1, 2, 0))
+        err = np.abs(got - want).max()
+        agree = (got.argmax(-1) == want.argmax(-1)).mean()
+        worst = max(worst, float(err))
+        print(f"{path}: max|dlogit|={err:.5f} argmax-agreement={agree:.6f}")
+    print(f"worst max|dlogit|: {worst:.5f}")
+    if args.max_dlogit is not None and worst > args.max_dlogit:
+        print(f"FAIL: worst {worst:.5f} > --max-dlogit {args.max_dlogit}")
+        raise SystemExit(1)
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
+    # the kernels build once per machine, where the knobs say
+    from segtpu_torch.utils.cache import enable_compilation_cache
+    enable_compilation_cache()
     ap = argparse.ArgumentParser("segtpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -273,6 +307,17 @@ def main(argv=None):
     pe.add_argument("--ckpt", default="")
     _add_device_flag(pe)
     pe.set_defaults(fn=cmd_eval)
+
+    pf = sub.add_parser("fidelity",
+                        help="per-pixel logit check vs golden .npz files")
+    pf.add_argument("--arch", default="arch0")
+    pf.add_argument("--num-classes", type=int, default=19)
+    pf.add_argument("--ckpt", default="")
+    pf.add_argument("--golden", nargs="+", required=True)
+    pf.add_argument("--max-dlogit", type=float, default=None,
+                    help="exit 1 if worst max|dlogit| exceeds this")
+    _add_device_flag(pf)
+    pf.set_defaults(fn=cmd_fidelity)
 
     args = ap.parse_args(argv)
     args.fn(args)

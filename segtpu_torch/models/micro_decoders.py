@@ -73,6 +73,22 @@ def validate_genotype(genotype, num_inputs: int = 4) -> None:
                 raise GenotypeError(f"block {b}: pool index {i!r} out of [0,{pool})")
 
 
+def prettify(genotype) -> str:
+    """A micro genotype in words, a line for each cell node and for each
+    block (reference: MicroDecoder.prettify); the JAX package's string."""
+    cell_config, conns = genotype
+    op0 = OP_NAMES[cell_config[0]]
+    names = ["x", f"{op0}(x)"]
+    lines = [f"cell: node0 = {op0}(x)"]
+    for k, (p1, p2, o1, o2) in enumerate(cell_config[1:], start=1):
+        lines.append(f"      node{k} = {OP_NAMES[o1]}({names[p1]}) + "
+                     f"{OP_NAMES[o2]}({names[p2]})")
+        names.append(f"n{k}")
+    lines += [f"block{b}: merge(pool[{i}], pool[{j}]) -> cell"
+              for b, (i, j) in enumerate(conns)]
+    return "\n".join(lines)
+
+
 def _cell_collect_inds(cell_config) -> List[int]:
     """Node outputs (incl. x at index 0) never consumed by a later node."""
     n_outputs = len(cell_config) + 1

@@ -1,6 +1,5 @@
-"""Device meshes and sharded inference in one process (counterpart:
-segtpu/parallel/mesh.py::make_mesh, make_sharded_infer_fn and
-make_sharded_pallas_infer_fn).
+"""Device meshes, sharded inference and data-parallel training in one
+process (counterpart: segtpu/parallel/mesh.py).
 
 The JAX package shards with ``shard_map`` over a ``jax.sharding.Mesh``.
 PyTorch's idiom here is explicit: one process holds every device, a
@@ -9,8 +8,14 @@ function loops over them (``parallel.collectives``). A device may appear
 several times in the grid: n logical shards on one card, the
 counterpart of the JAX tests' virtual CPU mesh, which runs every halo
 exchange, crop and per-shard band for real, one shard after another.
-There is no ``torch.distributed`` here; sharded training is not ported
-yet.
+There is no ``torch.distributed`` here.
+
+Data-parallel training splits the batch over the ``data`` axis
+(``shard_batch``) and keeps one set of weights. Its step
+(``make_sharded_train_step``) is the unsharded step on the whole batch
+up to rounding, as the JAX package's is: BatchNorm's moments, the loss
+and the gradients are the whole batch's. The ``space`` axis of training
+is not ported.
 
 The supernet's population steps shard the population: each device of
 the mesh's ``data`` axis holds K/data samples (``shard_population``)
@@ -21,10 +26,17 @@ order (``make_sharded_population_step``/``_eval``).
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import threading
+import weakref
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from segtpu_torch.core.layers import ShardGroup, shard_context
 
 
 class DeviceMesh:
@@ -201,5 +213,154 @@ def make_sharded_population_eval(eval_fn, mesh: DeviceMesh):
     def run(params, stats, masks, batch):
         return torch.cat([eval_fn(p, s, m, batch).to(dev0)
                           for p, s, m in zip(params, stats, masks)])
+
+    return run
+
+
+def _data_only(mesh: DeviceMesh) -> List[torch.device]:
+    """The ``data`` axis's devices of a mesh whose ``space`` axis is 1."""
+    if mesh.shape["space"] != 1:
+        raise ValueError(
+            f"sharded training splits the batch over the 'data' axis only; "
+            f"a mesh with space = {mesh.shape['space']} is not ported (see "
+            f"ROADMAP.md Queue A, the space axis of sharded training)")
+    return _data_devices(mesh)
+
+
+def shard_batch(mesh: DeviceMesh, batch) -> List[dict]:
+    """A batch dict cut along N over the mesh's ``data`` axis: one dict a
+    device, in row order, with its rows of ``image``, ``label`` and the
+    optional ``teacher`` on that device (numpy or tensors in, tensors
+    out; other entries as they are). N must divide by the ``data`` axis,
+    else ``ValueError``; a mesh with ``space`` > 1 raises too. The JAX
+    package returns one array sharded over the mesh; here the shards are
+    a list, as PyTorch has no sharded tensor."""
+    devices = _data_only(mesh)
+    n = len(batch["image"])
+    if n % len(devices):
+        raise ValueError(f"batch {n} must divide the data axis "
+                         f"{len(devices)}")
+    per = n // len(devices)
+    out = []
+    for r, dev in enumerate(devices):
+        part = dict(batch)
+        for key in ("image", "label", "teacher"):
+            if key in batch:
+                part[key] = torch.as_tensor(
+                    batch[key])[r * per:(r + 1) * per].to(dev)
+        out.append(part)
+    return out
+
+
+def make_sharded_train_step(step_fn, mesh: DeviceMesh):
+    """-> ``step(state, batch) -> (state, loss)``: ``step_fn`` (a
+    ``make_train_step`` step, whose ``StepParts`` it reads) with the
+    batch (the unsharded step's dict) split over the mesh's ``data`` axis
+    by ``shard_batch``: up to rounding, the unsharded step on the whole
+    batch.
+
+    The state keeps one set of weights (``TrainState`` holds the module;
+    the JAX package replicates a pytree). Each shard runs a skeleton of
+    the model (a copy on the meta device) by ``torch.func.functional_call``
+    on the state's weights moved to its device, in a thread of its own
+    (the step keeps one a shard, shut down when the step is collected);
+    the shards meet at each train BatchNorm (``core.layers.shard_context``),
+    which normalizes with the whole batch's moments and moves the running
+    stats once. The loss is every shard's NLL sums over the global counts
+    (``combine_loss_terms``). All of it is one autograd graph: one
+    backward of that loss gives the whole batch's gradients on the state's
+    weights, the optimizer's clip reads their norm, and the update and
+    Polyak run once. Nothing waits inside the backward, so logical shards
+    on one card (``[cuda:0] * n``) do not deadlock in autograd's one
+    worker thread for that card. A mesh with ``space`` > 1 raises
+    ``ValueError``."""
+    from segtpu_torch.engine.trainer import (_check_genotype,
+                                             combine_loss_terms)
+    parts = getattr(step_fn, "parts", None)
+    if parts is None:
+        raise TypeError("make_sharded_train_step shards a make_train_step "
+                        "step (one that carries its StepParts)")
+    devices = _data_only(mesh)
+    skeletons = []     # [model, its skeleton for each shard]
+    # one long-lived thread a shard: PyTorch keeps cuDNN's convolution
+    # plans per thread, and a new thread each step would plan them anew
+    workers = ThreadPoolExecutor(max_workers=len(devices),
+                                 thread_name_prefix="segtpu-shard")
+
+    def skeleton(model):
+        if not skeletons or skeletons[0] is not model:
+            skeletons[:] = [model, [copy.deepcopy(model).to("meta")
+                                    for _ in devices]]
+        return skeletons[1]
+
+    def step(state, batch):
+        model = state.model
+        _check_genotype(model, parts.genotype)
+        shards = shard_batch(mesh, batch)
+        model.train()
+        params = dict(model.named_parameters())
+        buffers = dict(model.named_buffers())
+        # rank 0 moves the running stats: into the state's own buffers,
+        # or copies of them on its device, written back below
+        buffers0 = {k: b.to(devices[0]) for k, b in buffers.items()}
+        group = ShardGroup(len(devices))
+
+        def run(r, skel, dev, shard):
+            try:
+                tensors = {k: p.to(dev) for k, p in params.items()}
+                tensors.update(buffers0 if r == 0 else
+                               {k: b.to(dev) for k, b in buffers.items()})
+                skel.train()
+
+                def forward(*args, **kwargs):
+                    return torch.func.functional_call(skel, tensors, args,
+                                                      kwargs)
+
+                on_dev = (torch.cuda.device(dev) if dev.type == "cuda"
+                          else contextlib.nullcontext())
+                with on_dev, shard_context(group, r):
+                    return parts.terms(forward, shard, dev)
+            except BaseException:
+                # the other shards' waits raise instead of hanging
+                group.abort()
+                raise
+
+        futures = [workers.submit(run, *a) for a in zip(
+            range(len(devices)), skeleton(model), devices, shards)]
+        failed = [e for e in (f.exception() for f in futures)
+                  if e is not None]
+        if failed:
+            # the first failure, not the others' broken barriers
+            raise next((e for e in failed
+                        if not isinstance(e, threading.BrokenBarrierError)),
+                       failed[0])
+        terms = [f.result() for f in futures]
+        with torch.no_grad():
+            for k, b in buffers.items():
+                if buffers0[k] is not b:
+                    b.copy_(buffers0[k])
+        loss = combine_loss_terms(terms, devices[0])
+        return parts.update(state, loss), loss.detach()
+
+    weakref.finalize(step, workers.shutdown, wait=False)
+    return step
+
+
+def make_sharded_eval_step(eval_step, mesh: DeviceMesh):
+    """-> ``eval(params, stats, batch) -> [K, K]``: ``eval_step`` (a
+    ``make_eval_step`` step) on each shard of ``shard_batch`` with the
+    maps moved to the shard's device, the confusion matrices summed in
+    shard order onto the mesh's first device: the unsharded matrix,
+    exactly. A mesh with ``space`` > 1 raises ``ValueError``."""
+    devices = _data_only(mesh)
+
+    def run(params, stats, batch):
+        total = None
+        for dev, shard in zip(devices, shard_batch(mesh, batch)):
+            cm = eval_step({k: p.to(dev) for k, p in params.items()},
+                           {k: s.to(dev) for k, s in stats.items()},
+                           shard).to(devices[0])
+            total = cm if total is None else total + cm
+        return total
 
     return run

@@ -38,7 +38,7 @@ from segtpu_torch.engine.trainer import (
     make_train_step)
 from segtpu_torch.models.encoders import MBV2_TAP_CHANNELS, MobileNetV2
 from segtpu_torch.models.families import infer_family
-from segtpu_torch.models.micro_decoders import GenotypeError
+from segtpu_torch.models.micro_decoders import GenotypeError, prettify
 from segtpu_torch.models.segmenter import Segmenter
 from segtpu_torch.rl.agent import create_agent, sample_genotype, train_agent
 from segtpu_torch.rl.controller import (MicroControllerSpec,
@@ -262,6 +262,15 @@ def create_search_agent(cfg: SearchConfig, device):
                         entropy_coef=cfg.ctrl_entropy_coef, device=device)
 
 
+def describe(genotype) -> str:
+    """What the search logs of a genotype: ``prettify``'s lines for a
+    micro genotype, the literal for a template one (``prettify`` reads
+    micro genotypes only)."""
+    if infer_family(genotype).name == "micro":
+        return prettify(genotype)
+    return repr(genotype)
+
+
 def run_search(cfg: SearchConfig, *, dataset=None, encoder=None,
                teacher=None, device="cuda"):
     """The whole NAS loop on ``device``. Returns the ``SearchSaver``
@@ -330,9 +339,9 @@ def run_search(cfg: SearchConfig, *, dataset=None, encoder=None,
                 extra[f"stage{k}_ms"] = (1e3 * timings[f"stage{k}_s"]
                                          / timings[f"stage{k}_steps"])
         saver.record(step, genotype, reward, extra)
-        log.info("step %d reward=%.4f (miou1=%.4f miou2=%.4f) %.1fs %s",
+        log.info("step %d reward=%.4f (miou1=%.4f miou2=%.4f) %.1fs\n%s",
                  step, reward, miou1, miou2, time.time() - t0,
-                 genotype if status == "ok" else status)
+                 describe(genotype) if status == "ok" else status)
         if (step + 1) % cfg.val_every == 0:
             saver.save(step + 1, agent.state.params,
                        float(agent.state.baseline))

@@ -5,9 +5,10 @@ batches, the epoch's mean loss, validation every ``val_every`` epochs
 (and after the last) on the Polyak weights with the live BatchNorm
 stats, the best of them saved as ``best_params.npz`` in the JAX
 package's checkpoint format, and an optional KD teacher run in eval
-mode. ``load_trained`` loads such a checkpoint, written by either
+mode; with ``data_parallel`` and several devices, the batch split over
+them. ``load_trained`` loads such a checkpoint, written by either
 package, into a ``Segmenter`` that ``segtpu_torch.engine.Segmenter``
-serves.
+serves, and ``measure_checkpoint_miou`` measures one on a split.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from segtpu_torch.engine.trainer import (eval_params_stats, images_to,
                                          init_train_state, make_eval_step,
                                          make_train_step, validate)
 from segtpu_torch.models.segmenter import create_segmenter
+from segtpu_torch.parallel.mesh import make_mesh, make_sharded_train_step
 from segtpu_torch.utils.helpers import resolve_device
 from segtpu_torch.utils.profiling import StepTimer, hard_sync
 from segtpu_torch.utils.saver import load_pytree, save_pytree
@@ -60,18 +62,21 @@ class TrainConfig:
 
 
 def run_training(genotype, train_loader, val_loader, cfg: TrainConfig, *,
-                 model=None, teacher=None, device="cuda"):
+                 model=None, teacher=None, device="cuda", devices=None):
     """Train ``genotype`` -> (best val mIoU, TrainState).
 
     ``model``: a ``Segmenter`` with aux heads to start from (on its own
     device); by default one with heads from ``torch.Generator`` seed
     ``cfg.seed`` on ``device``. ``teacher``: a ``Segmenter`` whose eval
     logits are the KD targets when ``cfg.do_kd``. The loaders yield the
-    JAX package's batch dicts (``image`` f32 [N,H,W,3], ``label``)."""
-    if cfg.data_parallel:
-        raise NotImplementedError(
-            "data-parallel training is not ported yet (ROADMAP.md Queue A "
-            "item 9, the sharded train step)")
+    JAX package's batch dicts (``image`` f32 [N,H,W,3], ``label``).
+    ``cfg.data_parallel`` splits each batch over ``devices``
+    (``make_sharded_train_step`` on ``make_mesh(len(devices), 1)``; the
+    batch size must divide by the count): by default every card of a
+    CUDA ``device``. Over one device, as on one card or on the CPU by
+    default, it trains unsharded, as the JAX package does on one
+    device. A caller may repeat a device (``["cpu"] * 2``) to drive the
+    sharded step on one."""
     if model is None:
         model = create_segmenter(
             genotype, cfg.num_classes, aux=True, device=resolve_device(device),
@@ -85,6 +90,15 @@ def run_training(genotype, train_loader, val_loader, cfg: TrainConfig, *,
                            aux_weight=cfg.aux_weight,
                            kd_coeff=cfg.kd_coeff if cfg.do_kd else 0.0)
     dev = next(model.parameters()).device
+    if cfg.data_parallel:
+        if devices is None:
+            devices = ([torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())]
+                       if dev.type == "cuda" else [dev])
+        if len(devices) > 1:
+            step = make_sharded_train_step(
+                step, make_mesh(len(devices), 1, devices=devices))
+            log.info("data-parallel over %d devices", len(devices))
 
     teacher_fn = None
     if cfg.do_kd and teacher is not None:
@@ -133,3 +147,22 @@ def load_trained(path: str, genotype, num_classes: int, *, device="cuda"):
     tree = load_pytree(path)
     load_jax_params(model, tree["params"], tree["stats"])
     return model.to(resolve_device(device))
+
+
+def measure_checkpoint_miou(ckpt_path: str, genotype, *, data_root: str,
+                            val_list: str, num_classes: int,
+                            crop=(64, 64), batch_size: int = 8,
+                            device="cuda") -> float:
+    """Val mIoU of a ``run_training`` best checkpoint on an on-disk split
+    (a ``.lst`` manifest under ``data_root``), in eval batches of
+    ``crop``: the one implementation behind every measurement of a
+    reused checkpoint, so that two of them cannot measure different
+    splits."""
+    from segtpu_torch.data.datasets import BatchLoader, SegmentationDataset
+    model = load_trained(ckpt_path, genotype, num_classes, device=device)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    stats = dict(model.named_buffers())
+    loader = BatchLoader(SegmentationDataset(data_root, val_list),
+                         batch_size=batch_size, crop=crop, train=False)
+    return float(validate(make_eval_step(genotype, num_classes=num_classes),
+                          params, stats, loader, num_classes=num_classes))

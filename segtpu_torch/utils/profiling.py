@@ -1,18 +1,73 @@
-"""Step timing (counterpart: segtpu/utils/profiling.py).
+"""Tracing, step timing and NaN checks (counterpart:
+segtpu/utils/profiling.py).
 
+``trace(logdir)`` writes a ``torch.profiler`` trace of a block;
 ``StepTimer`` keeps steady-state step time and items/s, skipping
 warm-up steps; ``hard_sync`` waits for the device work behind a value.
 CUDA launches return before the card finishes, so a host clock around a
 step measures its enqueue unless the step ends in ``hard_sync``.
+``debug_mode()`` raises on a NaN made inside a block.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Optional
 
 import torch
+from torch.overrides import TorchFunctionMode
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """A ``torch.profiler`` trace of the block (host, and the card's
+    kernels where CUDA is available), written at its end as
+    ``<logdir>/trace.json`` in Chrome's trace format (Perfetto or
+    chrome://tracing open it). Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+class _NanCheck(TorchFunctionMode):
+    """Raises ``FloatingPointError`` when a torch function called from
+    Python returns a floating tensor that holds a NaN."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in _leaves(out):
+            if t.is_floating_point() and bool(torch.isnan(t).any()):
+                raise FloatingPointError(
+                    f"NaN in the output of {getattr(func, '__name__', func)}")
+        return out
+
+
+@contextlib.contextmanager
+def debug_mode():
+    """Raise ``FloatingPointError`` on a NaN made inside the block, as
+    ``jax_debug_nans`` does in the JAX package. It covers the forward
+    and the backward: every torch function the block calls from Python
+    (modules' operations included) has its floating outputs checked, and
+    ``torch.autograd.detect_anomaly(check_nan=True)`` checks every
+    backward function's outputs (its ``RuntimeError`` is raised again
+    as ``FloatingPointError``). It does not see inside a hand-written
+    kernel's launch (a ctypes call writes into a tensor made before it):
+    the first torch function that reads a NaN it wrote shows it. Each
+    check waits for the device, so the block runs at the host's pace."""
+    try:
+        with torch.autograd.detect_anomaly(check_nan=True), _NanCheck():
+            yield
+    except RuntimeError as e:
+        if "returned nan values" not in str(e):
+            raise
+        raise FloatingPointError(str(e)) from e
 
 
 def _leaves(x):
@@ -44,7 +99,7 @@ class StepTimer:
     ...     with t.step(n_items=batch_size):
     ...         out = train_step(...)
     ...         hard_sync(out)
-    >>> t.items_per_sec
+    >>> t.steps_per_sec, t.items_per_sec
     """
 
     def __init__(self, warmup: int = 2):
@@ -66,5 +121,13 @@ class StepTimer:
             self._steps += 1
 
     @property
+    def steps_per_sec(self) -> Optional[float]:
+        return self._steps / self._time if self._time > 0 else None
+
+    @property
     def items_per_sec(self) -> Optional[float]:
         return self._items / self._time if self._time > 0 else None
+
+    @property
+    def sec_per_step(self) -> Optional[float]:
+        return self._time / self._steps if self._steps else None

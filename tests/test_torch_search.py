@@ -436,7 +436,8 @@ def test_subcommands_parse(argv, fn_name, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["bench", "--arch", "arch2"],
-                                  ["fidelity", "--golden", "g.npz"],
+                                  # fidelity without its required --golden
+                                  ["fidelity", "--arch", "arch0"],
                                   ["explode"]])
 def test_unported_and_bad_subcommands_rejected(argv):
     with pytest.raises(SystemExit):
