@@ -219,7 +219,15 @@ Phases, each a hard failure (non-zero exit) when it fails:
    --synthetic --num-iters 1 at 512x512, train --synthetic --num-epochs 1
    at 128x128, and infer on a seeded 1024x2048 .npy frame with a torch
    checkpoint of make_model's arch0: PATH_LAUNCHES, and the mask bit-equal
-   to engine.Segmenter.predict on the same weights.
+   to engine.Segmenter.predict on the same weights. The search
+   reproduces its rewards (run_search, run_supernet_search and
+   run_fleet_search run under deterministic algorithms,
+   segtpu_torch.utils.helpers.deterministic): 2 iterations of cvpr/PPO
+   as a library call in two fresh processes started together (without
+   CUBLAS_WORKSPACE_CONFIG, which run_search sets), then twice in this
+   process: each pair's rewards equal; the same pair at PyTorch's default
+   algorithms (run_search.__wrapped__) prints its spread and both pairs'
+   seconds.
 12. supernet: the population search (segtpu_torch.supernet, the mesh's
    population steps, parallel.fleet) at the settings of the repo's
    recorded supernet search (artifacts/search_v2/summary.json "proxy":
@@ -241,7 +249,8 @@ Phases, each a hard failure (non-zero exit) when it fails:
    deterministic algorithms, rewards within FLEET_TOL (0: equal); (e)
    measure_proxy_fidelity on tests/test_supernet.py's real and
    degenerate genotypes at its config: both proxies rank the real one
-   first, rho 1. Then the CLI: search --synthetic --supernet 8 and
+   first, rho 1; (f) the wacv/REINFORCE search run twice from its seed:
+   the rewards equal. Then the CLI: search --synthetic --supernet 8 and
    --fleet, one round each, and --supernet 8 --pop-devices 4, which must
    raise make_mesh's ValueError on fewer than four cards.
    (d)'s deterministic algorithms are torch.use_deterministic_algorithms
@@ -271,6 +280,18 @@ Phases, each a hard failure (non-zero exit) when it fails:
    unfolded model in f32 on the CPU (normalize, pad, forward, bilinear
    with align_corners, crop), at the drill's 56x72 and at 1024x2048,
    each held to --max-dlogit 1e-3; each worst max|dlogit| printed.
+15. space: the space axis of sharded training (core/bands.py: each shard
+   a band of rows of every activation, the ops that read across rows
+   meeting the shards of their data row) on logical shards of the card:
+   phase data_parallel's step and rule on (1, 2) and (2, 2) meshes at
+   its b16 512x512 batch, and one step of 2 frames of 1024x2048 on
+   (1, 4), each against the unsharded step on the whole batch (the
+   unsharded step's own spread the larger of its run on the batch
+   reversed and on the images one rounding up); the sharded eval on
+   (2, 2) equal to the unsharded one; the (1, 2) step with zero halos
+   (every band reading zeros past its cuts), which must fail the rule.
+   The ms of each step against the unsharded step's, and the peak memory
+   of each (every shard on the one card: not a shard's own).
 
 Prints the kernels JSON line (each row also with its launches on
 template0's path) and the card's name and power limit, then, last,
@@ -309,8 +330,11 @@ them: the sharded step under ghost BN (each shard normalizing by its own
 moments), the sharded eval with every shard on the first shard's rows,
 run_training's one-card data_parallel run from the next seed (a control
 that any code fails: it shows only that the check reads the losses),
-its run over two logical shards under ghost BN; and phase 14's two,
-on the checkpoint of the next seed.
+its run over two logical shards under ghost BN; phase 14's two, on the
+checkpoint of the next seed; phase 11's and 12's reproducibility checks
+with each pair's second run from the next seed (a control that any code
+fails: it shows that the checks read the rewards); and phase 15's three
+steps and its eval under zero halos.
 The checks that hold kernels against kernels (sharded or data mode
 against the unsharded engine) and phase 10's card against the CPU are
 not in it: the rounding moves both sides alike.
@@ -2765,6 +2789,7 @@ def phase_control(torch, bits: int) -> dict:
     res.update(supernet_control(torch, bits))
     res.update(data_parallel_control(torch))
     res.update(fidelity_control(torch))
+    res.update(space_control(torch))
     return res
 
 
@@ -3463,6 +3488,86 @@ def run_timed_search(torch, cfg):
             torch.cuda.max_memory_allocated())
 
 
+# run_search, run_supernet_search and run_fleet_search run under
+# deterministic algorithms (segtpu_torch.utils.helpers.deterministic), so a
+# search reproduces its rewards from its seed: a short cvpr/PPO search
+# (SEARCH_REPRO_ITERS iterations at the phase's settings) as a library call
+# in two fresh processes started together (CUBLAS_WORKSPACE_CONFIG unset
+# there: run_search sets it), then twice in this process; and twice with
+# PyTorch's default algorithms (run_search.__wrapped__), a measurement of
+# what determinism costs
+SEARCH_REPRO_ITERS = 2
+SEARCH_REPRO_TIMEOUT = 600
+
+
+def fresh_search(snapshot_dir, seed):
+    """A new process that runs the short search by ``run_search`` and
+    prints its rewards as its last line."""
+    code = ("import json, chip_smoke\n"
+            "from segtpu_torch.search import run_search\n"
+            f"cfg = chip_smoke.search_config({snapshot_dir!r}, "
+            f"num_iters={SEARCH_REPRO_ITERS}, ctrl_version='cvpr', "
+            f"ctrl_algo='ppo', seed={seed})\n"
+            "print(json.dumps([r['reward'] for r in "
+            "run_search(cfg, device='cuda').history]))\n")
+    env = {k: v for k, v in os.environ.items()
+           if k != "CUBLAS_WORKSPACE_CONFIG"}
+    return subprocess.Popen(
+        [sys.executable, "-c", code], env=env, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def search_repro(torch, tmp, control: bool = False):
+    """[(what, ok, detail)], numbers: the short search in two fresh
+    processes, then twice in this process, each pair's rewards equal;
+    without ``control`` also twice at PyTorch's default algorithms, each
+    run's seconds. ``control``: each pair's second run from the next
+    seed (a control that any code fails: it shows that the checks read
+    the rewards)."""
+    from segtpu_torch.search import run_search
+    seeds = (SEARCH_SEED, SEARCH_SEED + int(control))
+
+    def cfg(name, seed):
+        return search_config(os.path.join(tmp, name), seed=seed,
+                             num_iters=SEARCH_REPRO_ITERS,
+                             ctrl_version="cvpr", ctrl_algo="ppo")
+
+    procs = [fresh_search(os.path.join(tmp, f"fresh{i}"), seed)
+             for i, seed in enumerate(seeds)]
+    fresh = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=SEARCH_REPRO_TIMEOUT)
+            check(p.returncode == 0, f"a fresh process's search failed "
+                  f"({p.returncode}): {err[-2000:]}")
+            fresh.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    runs = [("deterministic", run_search, seeds[0]),
+            ("deterministic again", run_search, seeds[1])]
+    if not control:
+        runs += [("default", run_search.__wrapped__, SEARCH_SEED),
+                 ("default again", run_search.__wrapped__, SEARCH_SEED)]
+    nums = {"fresh_processes": fresh}
+    for name, fn, seed in runs:
+        saver, secs, _ = timed(torch, lambda: fn(cfg(name, seed),
+                                                 device="cuda"))
+        nums[name] = {"rewards": [r["reward"] for r in saver.history],
+                      "seconds": secs}
+    det = [nums["deterministic"]["rewards"],
+           nums["deterministic again"]["rewards"]]
+    checks = [(f"run_search in two fresh processes, {SEARCH_REPRO_ITERS} "
+               f"iterations from one seed", fresh[0] == fresh[1],
+               f"rewards {fresh[0]!r} and {fresh[1]!r}"),
+              ("run_search twice in this process from one seed",
+               det[0] == det[1], f"rewards {det[0]!r} and {det[1]!r}")]
+    return checks, nums
+
+
 def encoder_cache_ms(torch, cfg):
     """ms of search._cache_taps over run_search's meta-train cache loader
     (the encoder's taps of every fixed crop, once per search), after one
@@ -3582,6 +3687,19 @@ def phase_search(torch):
               f"CLI infer mask differs from Segmenter.predict on "
               f"{int((got != want).sum())} pixels")
         res["cli_infer_launches"] = launches
+        checks, res["repro"] = search_repro(torch, tmp)
+    for what, ok, detail in checks:
+        print(f"[search] {what}: {detail} on {gpu}")
+        check(ok, f"{what}: {detail}")
+    r = res["repro"]
+    spread = max(abs(a - b) for a, b in zip(r["default"]["rewards"],
+                                            r["default again"]["rewards"]))
+    print(f"[search] {SEARCH_REPRO_ITERS} iterations of cvpr/PPO: "
+          f"{r['deterministic']['seconds']:.2f} / "
+          f"{r['deterministic again']['seconds']:.2f} s under deterministic "
+          f"algorithms (spread 0), {r['default']['seconds']:.2f} / "
+          f"{r['default again']['seconds']:.2f} s with PyTorch's defaults "
+          f"(spread {spread!r}) on {gpu}")
     return res
 
 
@@ -3598,9 +3716,12 @@ def search_control(torch, bits: int) -> dict:
     os.makedirs("chiprun_out", exist_ok=True)
     with tempfile.TemporaryDirectory(dir="chiprun_out") as tmp:
         got, want, _ = cli_infer(torch, tmp, bits)
+        repro = search_repro(torch, tmp, control=True)[0]
     res["CLI infer mask vs Segmenter.predict"] = must_fail(
         "CLI infer mask", lambda: check(np.array_equal(got, want),
                                         "CLI infer mask differs"))
+    for what, ok, detail in repro:
+        res[what] = must_fail(what, lambda: check(ok, f"{what}: {detail}"))
     return res
 
 
@@ -3919,8 +4040,9 @@ def fleet_check(torch, cfg, bits=None):
     """(d) One round of run_fleet_search on [cuda:0] * FLEET_WORKERS
     against search.proxy_train run one genotype after another on fresh
     loaders with the records' genotypes and the workers' seeds, both
-    under deterministic algorithms (``deterministic``), where the card's
-    proxy training is bit-reproducible; the sequential run twice, its
+    under deterministic algorithms (``utils.helpers.deterministic``, which
+    run_fleet_search enters itself), where the card's proxy training is
+    bit-reproducible; the sequential run twice, its
     spread printed. Without ``bits`` the sequential pair also runs with
     PyTorch's default algorithms, which are not, and prints its spread
     and time beside. With ``bits`` (a control) the fleet's workers train
@@ -3928,6 +4050,7 @@ def fleet_check(torch, cfg, bits=None):
     from segtpu_torch import search
     from segtpu_torch.data.datasets import SegmentationDataset
     from segtpu_torch.parallel.fleet import run_fleet_search
+    from segtpu_torch.utils.helpers import deterministic
     ds = SegmentationDataset(cfg.data_root, cfg.train_list)
     proxy_train = search.proxy_train
 
@@ -3940,7 +4063,7 @@ def fleet_check(torch, cfg, bits=None):
                 fresh["val"], rng_seed=cfg.seed + i)))
         return out
 
-    with deterministic(torch):
+    with deterministic():
         if bits is not None:
             def shifted(*a, rng_seed, **kw):
                 return proxy_train(*a, rng_seed=rng_seed + 1, **kw)
@@ -3977,26 +4100,6 @@ def fleet_check(torch, cfg, bits=None):
     return ((f"fleet of {FLEET_WORKERS} vs sequential proxy_train", ok,
              f"rewards {got!r} against {seq!r}: max |d| {err!r} (limit "
              f"{FLEET_TOL}), sequential against itself {spread!r}"), nums)
-
-
-# cuBLAS's workspace as deterministic algorithms need it (PyTorch reads
-# it when cuBLAS first runs): set before any work on the card
-CUBLAS_WORKSPACE = ":4096:8"
-
-
-@contextlib.contextmanager
-def deterministic(torch):
-    """torch.use_deterministic_algorithms(True) and cuDNN's deterministic
-    algorithms, both restored after."""
-    saved = (torch.are_deterministic_algorithms_enabled(),
-             torch.backends.cudnn.deterministic)
-    torch.use_deterministic_algorithms(True)
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(saved[0])
-        torch.backends.cudnn.deterministic = saved[1]
 
 
 def fidelity_check(torch, bits=None):
@@ -4080,8 +4183,9 @@ def phase_supernet(torch):
             cfg, num_iters=1, num_epochs=FLEET_EPOCHS,
             snapshot_dir=os.path.join(tmp, "fleet")))
         (fid, enums) = fidelity_check(torch)
+        repro = supernet_repro(torch, root, tmp)
         res.update(population=nums, fleet=fnums, fidelity=enums)
-        for what, ok, detail in checks + [fleet, fid]:
+        for what, ok, detail in checks + [fleet, fid, repro]:
             print(f"[supernet] {what}: {detail} on {gpu}")
             check(ok, f"{what}: {detail}")
         print(f"[supernet] population step K = 8: vectorised "
@@ -4114,6 +4218,27 @@ def phase_supernet(torch):
     return res
 
 
+def supernet_repro(torch, root, tmp, control: bool = False):
+    """(what, ok, detail): SUPERNET_RUNS' wacv/REINFORCE search run twice
+    from SUPERNET_SEED gives the same rewards (run_supernet_search runs
+    under deterministic algorithms). ``control``: the second run from
+    the next seed."""
+    from segtpu_torch import supernet as sn
+    from segtpu_torch.data.datasets import SegmentationDataset
+    version, algo, k, rounds = SUPERNET_RUNS[1]
+    rewards = []
+    for i, seed in enumerate((SUPERNET_SEED, SUPERNET_SEED + int(control))):
+        cfg = supernet_config(root, os.path.join(tmp, f"repro{i}"),
+                              num_iters=rounds, ctrl_version=version,
+                              ctrl_algo=algo, seed=seed)
+        rewards.append([r["reward"] for r in sn.run_supernet_search(
+            cfg, population=k, device="cuda",
+            dataset=SegmentationDataset(root, cfg.train_list)).history])
+    return (f"{version}/{algo} supernet search twice from one seed",
+            rewards[0] == rewards[1],
+            f"rewards {rewards[0]!r} and {rewards[1]!r}")
+
+
 def supernet_control(torch, bits: int) -> dict:
     """The control's supernet checks: (a) on one round of each run with
     the snapshot's baseline rounded to ``bits`` bits, (b) and (c) with
@@ -4142,6 +4267,7 @@ def supernet_control(torch, bits: int) -> dict:
             cfg, num_iters=1, num_epochs=FLEET_EPOCHS,
             snapshot_dir=os.path.join(tmp, "fleet")), bits)[0])
         checks.append(fidelity_check(torch, bits)[0])
+        checks.append(supernet_repro(torch, root, tmp, control=True))
     for what, ok, detail in checks:
         res[what] = must_fail(what, lambda: check(ok, f"{what}: {detail}"))
     return res
@@ -4228,12 +4354,15 @@ def _dist(torch, a, b, group):
 
 def dp_compare(torch, want, reverse, before, got):
     """(worst ratio of error to limit, rows): the sharded step's state
-    against the unsharded step's by the rule above."""
+    against the unsharded step's by the rule above; ``reverse`` the
+    unsharded step's own run on the batch reversed, or a list of such
+    runs, whose largest spread counts."""
     rows = [("loss", None, abs(got["loss"] - want["loss"])
              / abs(want["loss"]), DP_LOSS_RTOL)]
     for key in ("params", "trace", "polyak", "stats"):
         for group in ("encoder", "decoder"):
-            spread = _dist(torch, reverse[key], want[key], group)
+            spread = max(_dist(torch, r[key], want[key], group) for r in (
+                reverse if isinstance(reverse, list) else [reverse]))
             update = _dist(torch, want[key], before[key], group)
             rows.append((key, group, _dist(torch, got[key], want[key], group),
                          max(DP_FLOOR[key] * update, DP_SPREAD * spread)))
@@ -4546,15 +4675,231 @@ def fidelity_control(torch) -> dict:
             for what, ok, detail in checks}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the space axis of sharded training on logical shards of the card
+# ---------------------------------------------------------------------------
+
+# phase data_parallel's configuration and rule on (data, space) meshes of
+# logical shards of the card, and one step at the full resolution the axis
+# is for. The unsharded step's own spread is the larger of its run on the
+# batch reversed and on the images one rounding up (np.nextafter): at b2
+# reversing the batch barely reorders a sum (on the CPU at 2x64x128 it
+# moved the parameters by 1e-8, the images one rounding apart by 9e-5,
+# and the (1, 4) bands, which sum each convolution's rows in another
+# order, by 4e-5)
+SPACE_MESHES = ((1, 2), (2, 2))
+SPACE_FULL_MESH = (1, 4)
+SPACE_FULL_BATCH = 2
+
+
+@contextlib.contextmanager
+def zero_halos(on: bool):
+    """The phase's own control (and the --control's fault), when ``on``:
+    every band reads zeros past its cuts, not the other shards' rows."""
+    import copy
+    from segtpu_torch.core import bands
+    real = bands.Bands.rows
+
+    def rows(self, lo, hi):
+        own = copy.copy(self)
+        own.parts = [p if i == self.rank else p.new_zeros(p.shape)
+                     for i, p in enumerate(self.parts)]
+        return real(own, lo, hi)
+
+    if on:
+        bands.Bands.rows = rows
+    try:
+        yield
+    finally:
+        bands.Bands.rows = real
+
+
+def full_batch():
+    """SPACE_FULL_BATCH frames of H x W (the serving phases' 1024x2048)
+    as phase train's batch: normal images, K classes, a band of 255, and
+    the first image's top quarter ignored too (the bands' valid counts
+    differ)."""
+    rng = np.random.default_rng(24)
+    image = rng.standard_normal((SPACE_FULL_BATCH, H, W, 3), dtype=np.float32)
+    label = rng.integers(0, K, (SPACE_FULL_BATCH, H, W)).astype(np.int32)
+    label[:, H * 25 // 64:H * 29 // 64] = 255
+    label[0, :H // 4] = 255
+    return {"image": image, "label": label}
+
+
+def space_mesh(torch, shape):
+    from segtpu_torch.parallel import make_mesh
+    return make_mesh(*shape, devices=[torch.device("cuda", 0)]
+                     * (shape[0] * shape[1]))
+
+
+def space_step_checks(torch, model, batch, runs):
+    """[(what, ok, detail)], {mesh: worst ratio}: one step sharded on each
+    (data, space) mesh of ``runs`` ((mesh, zero_halos) pairs) against the
+    unsharded step on the whole batch, by phase data_parallel's rule
+    (dp_compare) with the spread above."""
+    rev = {k: np.ascontiguousarray(v[::-1]) for k, v in batch.items()}
+    up = dict(batch, image=np.nextafter(batch["image"], np.float32(np.inf)))
+    before, want, _ = dp_step(torch, model, batch)
+    spreads = [dp_step(torch, model, b)[1] for b in (rev, up)]
+    out, worst = [], {}
+    for shape, halos in runs:
+        with zero_halos(halos):
+            got = dp_step(torch, model, batch, space_mesh(torch, shape))[1]
+        w, rows = dp_compare(torch, want, spreads, before, got)
+        worst[f"{shape}{' zero halos' if halos else ''}"] = w
+        out.append((f"space step on a {shape} mesh of logical shards vs "
+                    f"unsharded, {dims(batch)}", w <= 1.0,
+                    f"worst error / limit {w!r}: " + ", ".join(
+                        f"{k}{'' if g is None else ' ' + g} {e:.3g}/{lim:.3g}"
+                        for k, g, e, lim in rows)))
+    return out, worst
+
+
+def space_eval_check(torch, state, batch, shape, halos=False):
+    """(what, ok, detail), numbers: the eval sharded on a (data, space)
+    mesh against the unsharded eval on the trained state. The confusion
+    matrices equal, or the slice's near-tie rule: every pixel whose class
+    differs a near-tie (top-2 gap <= NEAR_TIE of max(|top1|, 1)) of the
+    unsharded eval's logits (cuDNN picks its algorithms at a band's
+    shapes, and a rounding apart flips a near-tie). The classes and the
+    logits are read where the eval step makes them."""
+    from segtpu_torch.core import bands
+    from segtpu_torch.engine import trainer
+    from segtpu_torch.parallel import make_sharded_eval_step
+    ev = trainer.make_eval_step(state.model.genotype, num_classes=K)
+    params, stats = trainer.eval_params_stats(state)
+    preds, logits = {}, []
+    cm_fn, resize_fn = trainer.confusion_matrix, trainer.resize_bilinear
+
+    def cm_recording(pred, label, k):
+        member = bands.mesh_member()
+        preds[None if member is None else member[1]] = pred
+        return cm_fn(pred, label, k)
+
+    def resize_recording(*a, **kw):
+        out = resize_fn(*a, **kw)
+        if bands.mesh_member() is None:
+            logits.append(out)
+        return out
+
+    trainer.confusion_matrix = cm_recording
+    trainer.resize_bilinear = resize_recording
+    try:
+        with zero_halos(halos):
+            got = make_sharded_eval_step(ev, space_mesh(torch, shape))(
+                params, stats, batch)
+        want = ev(params, stats, batch)
+    finally:
+        trainer.confusion_matrix, trainer.resize_bilinear = cm_fn, resize_fn
+    data, space = shape
+    pred = torch.cat([torch.cat([preds[d * space + s] for s in range(space)],
+                                1) for d in range(data)])
+    top = logits[0].float().topk(2, dim=1).values
+    gaps = (top[:, 0] - top[:, 1]) / top[:, 0].abs().clamp_min(1.0)
+    differ = pred != preds[None]
+    off = int((differ & (gaps > NEAR_TIE)).sum())
+    widest = gaps[differ].max().item() if bool(differ.any()) else 0.0
+    counts = int((got - want).abs().sum())
+    # the classes read are those the sharded matrix counts
+    read = torch.equal(cm_fn(pred, torch.as_tensor(batch["label"]).to(
+        pred.device).long(), K).to(got.device), got)
+    nums = {"cm_counts_differ": counts, "pixels_differ": int(differ.sum()),
+            "off_near_ties": off, "widest_gap": widest}
+    return ((f"space eval on a {shape} mesh of logical shards vs unsharded",
+             off == 0 and read,
+             f"confusion matrices differ in {counts} of {int(want.sum())} "
+             f"counts; {int(differ.sum())} pixels' classes differ, "
+             f"{off} of them off near-ties (gap > {NEAR_TIE}; widest "
+             f"{widest!r})"), nums)
+
+
+def step_ms_peak(torch, model, batch, mesh=None):
+    """(ms a step, peak bytes over those steps) of dp_step_ms."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = dp_step_ms(torch, model, batch, mesh)
+    return ms, torch.cuda.max_memory_allocated()
+
+
+def space_checks(torch, control: bool = False):
+    """([(what, ok, detail)], [the zero-halo step's], numbers): the step
+    on SPACE_MESHES at phase train's batch and on SPACE_FULL_MESH at
+    full_batch(), the eval on SPACE_MESHES[1]; without ``control`` also
+    the step on SPACE_MESHES[0] under zero halos, which must fail; with
+    it (the --control's) every check runs under zero halos."""
+    batch = dp_batch()
+    model = train_model(torch).cuda()
+    runs = [(m, control) for m in SPACE_MESHES]
+    with tf32(torch, False):
+        steps, worst = space_step_checks(
+            torch, model, batch,
+            runs + ([] if control else [(SPACE_MESHES[0], True)]))
+        full, w_full = space_step_checks(torch, model, full_batch(),
+                                         [(SPACE_FULL_MESH, control)])
+        state = dp_step(torch, model, {k: torch.from_numpy(v).cuda()
+                                       for k, v in batch.items()})[2]
+        eval_chk, eval_nums = space_eval_check(torch, state, batch,
+                                               SPACE_MESHES[1], control)
+    worst.update(w_full)
+    return (steps[:len(runs)] + full + [eval_chk], steps[len(runs):],
+            {"worst": worst, "eval": eval_nums})
+
+
+def phase_space(torch):
+    """Phase 15 (see the module doc). Returns its numbers for the JSON."""
+    torch.cuda.empty_cache()
+    gpu = gpu_line()
+    t_phase = time.perf_counter()
+    checks, [(what, ok, detail)], res = space_checks(torch)
+    res["gpu"] = gpu
+    for c_what, c_ok, c_detail in checks:
+        print(f"[space] {c_what}: {c_detail} on {gpu}")
+        check(c_ok, f"{c_what}: {c_detail}")
+    print(f"[space] control, zero halos: {what}: {detail} on {gpu}")
+    check(not ok, f"zero halos passed the rule: {detail}")
+    model = train_model(torch).cuda()
+    ms = {}
+    with tf32(torch, False):
+        for name, b, shape in (
+                ("b16", dp_batch(), None),
+                *((f"b16 {m}", dp_batch(), m) for m in SPACE_MESHES),
+                ("full", full_batch(), None),
+                (f"full {SPACE_FULL_MESH}", full_batch(), SPACE_FULL_MESH)):
+            gb = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+            ms[name] = step_ms_peak(torch, model, gb, None if shape is None
+                                    else space_mesh(torch, shape))
+            print(f"[space] arch0 aux {dims(b)} TF32 off, "
+                  f"{'unsharded' if shape is None else f'on {shape}'}: "
+                  f"{ms[name][0]:.4f} ms a step ({DP_TIMED} timed after 1), "
+                  f"peak {ms[name][1] / 2 ** 30:.3f} GiB (every shard on "
+                  f"the one card) on {gpu}")
+            del gb
+    res["ms_peak"] = ms
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[space] phase: {res['phase_s']:.2f} s on {gpu}")
+    return res
+
+
+def space_control(torch) -> dict:
+    """The control's space checks, under zero halos. Returns {check:
+    failed}."""
+    checks, _, _ = space_checks(torch, control=True)
+    return {what: must_fail(what, lambda: check(ok, f"{what}: {detail}"))
+            for what, ok, detail in checks}
+
+
 def main() -> None:
+    try:
+        from segtpu_torch.utils.helpers import CUBLAS_WORKSPACE
+    except ImportError as e:
+        fail(f"segtpu_torch is not importable beside this script: {e}")
+    # before cuBLAS first runs, as main_search.main sets it: the search
+    # phases' deterministic algorithms need this workspace
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a card")
-    try:
-        import segtpu_torch  # noqa: F401
-    except ImportError as e:
-        fail(f"segtpu_torch is not importable beside this script: {e}")
     # the f32 reference comparisons use full f32 (no TF32) everywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4641,6 +4986,7 @@ def main() -> None:
     supernet = phase_supernet(torch)
     data_parallel = phase_data_parallel(torch)
     fidelity = phase_fidelity(torch)
+    space = phase_space(torch)
     if "--profile" in sys.argv[1:]:
         profile(torch, seg, seg_t, frames)
         train["profile"] = profile_train(torch)
@@ -4660,7 +5006,8 @@ def main() -> None:
                        "space_launches": t_space_launches},
                    "experiments": experiments, "train": train,
                    "search": search, "supernet": supernet,
-                   "data_parallel": data_parallel, "fidelity": fidelity},
+                   "data_parallel": data_parallel, "fidelity": fidelity,
+                   "space": space},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import torch
 
+from segtpu_torch.core import bands
+
 
 @functools.lru_cache(maxsize=None)
 def _interp_matrix(n_in: int, n_out: int, align_corners: bool) -> np.ndarray:
@@ -50,17 +52,35 @@ def _interp_tensor(n_in: int, n_out: int, align_corners: bool, device,
             n_in, n_out, align_corners)).to(device, dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _rows_read(n_in: int, n_out: int, align_corners: bool, lo: int,
+               hi: int):
+    """[first, last + 1) of the input rows that output rows [lo, hi) of
+    ``_interp_matrix`` weigh (an empty band reads none)."""
+    cols = np.flatnonzero(_interp_matrix(n_in, n_out, align_corners)
+                          [lo:hi].any(0))
+    return (int(cols[0]), int(cols[-1]) + 1) if cols.size else (0, 0)
+
+
 def resize_bilinear(x, out_hw, *, align_corners: bool = True,
                     compute_dtype=torch.float32):
     """Bilinear-resize the two spatial dims of an [N, C, H, W] tensor,
     like ``F.interpolate(mode='bilinear')``; computed in
-    ``compute_dtype`` and returned in x's dtype."""
+    ``compute_dtype`` and returned in x's dtype. On a band of rows
+    (``core.bands``) ``out_hw`` is the global size: this shard's band of
+    the output, from the global matrix's rows for it and the input rows
+    they read, gathered from the row."""
     h_out, w_out = int(out_hw[0]), int(out_hw[1])
-    h_in, w_in = x.shape[-2], x.shape[-1]
+    view = bands.gather(x)
+    h_in, w_in = x.shape[-2] if view is None else view.h, x.shape[-1]
     if (h_in, w_in) == (h_out, w_out):
         return x
     ah = _interp_tensor(h_in, h_out, align_corners, x.device, compute_dtype)
     aw = _interp_tensor(w_in, w_out, align_corners, x.device, compute_dtype)
+    if view is not None:
+        lo, hi = view.band(h_out)
+        first, last = _rows_read(h_in, h_out, align_corners, lo, hi)
+        ah, x = ah[lo:hi, first:last], view.rows(first, last)
     y = torch.matmul(ah, x.to(compute_dtype))      # [.., Ho, Wi]
     y = torch.matmul(y, aw.t())                    # [.., Ho, Wo]
     return y.to(x.dtype)

@@ -23,12 +23,14 @@ from __future__ import annotations
 
 import dataclasses
 import re
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from segtpu_torch.core.bands import global_hw
 from segtpu_torch.core.resize import resize_bilinear
 from segtpu_torch.utils.metrics import confusion_matrix, mean_iou
 from segtpu_torch.utils.solvers import polyak_update
@@ -80,10 +82,11 @@ def _nll_sum_count(logits, labels, *, num_classes: int):
     their quotient; logits [N, K, h, w] are upsampled to the labels'
     [N, H, W] first, in f32. Written out (not
     ``F.cross_entropy(ignore_index=255)``): every label outside [0, K) is
-    ignored, as in the JAX package."""
-    if logits.shape[-2:] != labels.shape[-2:]:
-        logits = resize_bilinear(logits, labels.shape[-2:],
-                                 compute_dtype=torch.float32)
+    ignored, as in the JAX package. On a band of rows (``core.bands``)
+    both sizes are global: the logits' band of the labels' size."""
+    hw = global_hw(labels)
+    if global_hw(logits) != hw:
+        logits = resize_bilinear(logits, hw, compute_dtype=torch.float32)
     logits = logits.float()
     valid = (labels >= 0) & (labels < num_classes)
     safe = torch.where(valid, labels, 0).long()
@@ -97,11 +100,11 @@ def _kd_sum_count(student_logits, teacher_logits):
     """(sum over pixels of the teacher's softmax against the student's
     log-softmax, summed over classes, the number of pixels): the parts of
     the JAX package's ``kd_loss`` at temperature 1, as its
-    ``segmentation_loss`` calls it."""
-    if student_logits.shape[-2:] != teacher_logits.shape[-2:]:
-        student_logits = resize_bilinear(
-            student_logits, teacher_logits.shape[-2:],
-            compute_dtype=torch.float32)
+    ``segmentation_loss`` calls it. On a band, as ``_nll_sum_count``."""
+    hw = global_hw(teacher_logits)
+    if global_hw(student_logits) != hw:
+        student_logits = resize_bilinear(student_logits, hw,
+                                         compute_dtype=torch.float32)
     p_t = torch.softmax(teacher_logits.float(), dim=1)
     logp_s = torch.log_softmax(student_logits.float(), dim=1)
     per_pixel = -(p_t * logp_s).sum(1)
@@ -320,12 +323,15 @@ def make_eval_step(genotype, *, num_classes: int):
     on them with ``torch.func.functional_call``: logits upsampled in f32
     to the labels' size, argmax (ties to the lower class), confusion
     matrix. Entries the skeleton lacks (training's aux heads) are not
-    read."""
+    read. Each thread that calls the step has skeletons of its own
+    (``functional_call`` swaps a module's tensors while it runs), so the
+    sharded eval may call it from a thread a shard."""
     from segtpu_torch.models.segmenter import Segmenter
-    skeletons = {}
+    local = threading.local()
 
     def skeleton(params):
         dims = decoder_dims(params)
+        skeletons = local.__dict__.setdefault("skeletons", {})
         if dims not in skeletons:
             model = Segmenter(genotype, num_classes, agg_size=dims[0],
                               repeats=dims[1],
@@ -342,7 +348,7 @@ def make_eval_step(genotype, *, num_classes: int):
         label = _labels_to(batch["label"], dev)
         logits = torch.func.functional_call(
             model, tensors, (images_to(batch["image"], dev),))
-        logits = resize_bilinear(logits, label.shape[-2:],
+        logits = resize_bilinear(logits, global_hw(label),
                                  compute_dtype=torch.float32)
         pred = torch.argmax(logits.float(), dim=1)
         return confusion_matrix(pred, label, num_classes)

@@ -26,6 +26,7 @@ import argparse
 import ast
 import dataclasses
 import logging
+import os
 
 
 def _add_search_flags(p: argparse.ArgumentParser):
@@ -255,6 +256,10 @@ def cmd_fidelity(args):
 
 
 def main(argv=None):
+    # before cuBLAS first runs: the search's deterministic algorithms
+    # need this workspace (utils.helpers.deterministic)
+    from segtpu_torch.utils.helpers import CUBLAS_WORKSPACE
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     # the kernels build once per machine, where the knobs say

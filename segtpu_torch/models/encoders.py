@@ -13,8 +13,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
+from segtpu_torch.core import bands
 from segtpu_torch.core.layers import ConvBN, relu6
 
 # (expansion t, out channels c, repeats n, first-stride s)
@@ -100,8 +100,9 @@ class MobileNetV2(nn.Module):
 
     def forward(self, x, input_format: str = "nhwc3"):
         if input_format == "s2d12":
+            # the top row of padding is the image's, not each band's
             w2 = stem_s2d_kernel(self.stem.w).to(x.dtype)
-            y = F.conv2d(F.pad(x, (1, 0, 1, 0)), w2)
+            y = bands.conv2d(x, w2, padding=(1, 0, 1, 0))
             y = relu6(self.stem.bn(y))
         elif input_format == "nhwc3":
             y = self.stem(x)

@@ -29,6 +29,7 @@ from typing import List, Sequence
 import torch
 import torch.nn as nn
 
+from segtpu_torch.core.bands import global_hw
 from segtpu_torch.core.layers import Conv, ConvBN
 from segtpu_torch.core.resize import resize_bilinear
 from segtpu_torch.ops.layer_factory import NUM_OPS, OP_NAMES, Op
@@ -148,7 +149,7 @@ class Agg(nn.Module):
 
     def forward(self, x1, x2, *, align_corners: bool = True):
         y1, y2 = self.branch1(x1), self.branch2(x2)
-        hw = (max(y1.shape[-2], y2.shape[-2]), max(y1.shape[-1], y2.shape[-1]))
+        hw = tuple(map(max, global_hw(y1), global_hw(y2)))
         return (resize_bilinear(y1, hw, align_corners=align_corners)
                 + resize_bilinear(y2, hw, align_corners=align_corners))
 
@@ -203,8 +204,8 @@ class MicroDecoder(nn.Module):
                 head = blk["aux"]
                 aux.append(head["clf"](head["cell"](y) if "cell" in head
                                        else y))
-        h = max(pool[i].shape[-2] for i in self.collect)
-        w = max(pool[i].shape[-1] for i in self.collect)
+        hws = [global_hw(pool[i]) for i in self.collect]
+        h, w = max(hw[0] for hw in hws), max(hw[1] for hw in hws)
         feats = [resize_bilinear(pool[i], (h, w), align_corners=align_corners)
                  for i in self.collect]
         logits = self.clf(torch.cat(feats, dim=1))

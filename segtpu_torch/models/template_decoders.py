@@ -29,6 +29,7 @@ from typing import List, Sequence
 import torch
 import torch.nn as nn
 
+from segtpu_torch.core.bands import global_hw
 from segtpu_torch.core.layers import Conv, ConvBN
 from segtpu_torch.core.resize import resize_bilinear
 from segtpu_torch.models.micro_decoders import (AGG_SIZE, GenotypeError,
@@ -107,8 +108,7 @@ class TemplateDecoder(nn.Module):
         aux = []
         for blk, (i, j, agg, _) in zip(self.blocks, self.genotype):
             x1, x2 = pool[i], pool[j]
-            hw = (max(x1.shape[-2], x2.shape[-2]),
-                  max(x1.shape[-1], x2.shape[-1]))
+            hw = tuple(map(max, global_hw(x1), global_hw(x2)))
             if AGG_OP_NAMES[agg] == "psum":
                 y = (resize_bilinear(blk["b1"](x1), hw,
                                      align_corners=align_corners)
@@ -123,8 +123,8 @@ class TemplateDecoder(nn.Module):
             pool.append(y)
             if with_aux and "aux_clf" in blk:
                 aux.append(blk["aux_clf"](y))
-        h = max(pool[i].shape[-2] for i in self.collect)
-        w = max(pool[i].shape[-1] for i in self.collect)
+        hws = [global_hw(pool[i]) for i in self.collect]
+        h, w = max(hw[0] for hw in hws), max(hw[1] for hw in hws)
         feats = [resize_bilinear(pool[i], (h, w), align_corners=align_corners)
                  for i in self.collect]
         logits = self.clf(torch.cat(feats, dim=1))

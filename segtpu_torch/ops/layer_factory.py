@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from segtpu_torch.core import bands
 from segtpu_torch.core.layers import ConvBN
 
 OP_NAMES = (
@@ -79,9 +80,12 @@ class Op(nn.Module):
             return x
         if self.name == "global_average_pool":
             # GAP in f32 -> 1x1 conv-bn-relu -> broadcast back to H x W
-            # (bilinear upsample of a 1x1 map is exactly a broadcast)
-            pooled = x.float().mean((-2, -1), keepdim=True).to(x.dtype)
-            return self.conv(pooled).expand(-1, -1, x.shape[-2], x.shape[-1])
+            # (bilinear upsample of a 1x1 map is exactly a broadcast); on
+            # a band the pool is the row's, the same on each of its shards
+            pooled = bands.mean_hw(x).to(x.dtype)
+            with bands.replicated():
+                y = self.conv(pooled)
+            return y.expand(-1, -1, x.shape[-2], x.shape[-1])
         if hasattr(self, "reps"):
             for rep in self.reps:
                 x = rep["pw"](rep["dw"](x))

@@ -31,6 +31,7 @@ import torch
 from segtpu_torch.config import SearchConfig
 from segtpu_torch.models.micro_decoders import GenotypeError
 from segtpu_torch.parallel.collectives import per_device
+from segtpu_torch.utils.helpers import deterministic
 from segtpu_torch.utils.saver import SearchSaver
 
 log = logging.getLogger("segtpu_torch.fleet")
@@ -51,9 +52,11 @@ def _replica(batches, dev):
              for k, v in b.items()} for b in batches]
 
 
+@deterministic()
 def run_fleet_search(cfg: SearchConfig, *, devices: Optional[List] = None,
                      dataset=None, encoder=None):
-    """Round-based fleet search: each round samples one genotype a
+    """Round-based fleet search, under deterministic algorithms as
+    ``search.run_search``: each round samples one genotype a
     device, proxy-trains them concurrently (an invalid genotype scores
     ``cfg.invalid_reward``), then makes one batched controller update.
     ``cfg.num_iters`` counts rounds (K = len(devices) genotypes each).

@@ -10,12 +10,12 @@ counterpart of the JAX tests' virtual CPU mesh, which runs every halo
 exchange, crop and per-shard band for real, one shard after another.
 There is no ``torch.distributed`` here.
 
-Data-parallel training splits the batch over the ``data`` axis
-(``shard_batch``) and keeps one set of weights. Its step
-(``make_sharded_train_step``) is the unsharded step on the whole batch
-up to rounding, as the JAX package's is: BatchNorm's moments, the loss
-and the gradients are the whole batch's. The ``space`` axis of training
-is not ported.
+Sharded training splits the batch over the ``data`` axis and each
+image's rows over the ``space`` axis (``shard_batch``) and keeps one set
+of weights. Its step (``make_sharded_train_step``) is the unsharded step
+on the whole batch up to rounding, as the JAX package's is: BatchNorm's
+moments, the loss and the gradients are the whole batch's, and each op
+that reads across rows meets the shards of its row (``core.bands``).
 
 The supernet's population steps shard the population: each device of
 the mesh's ``data`` axis holds K/data samples (``shard_population``)
@@ -36,7 +36,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from segtpu_torch.core.layers import ShardGroup, shard_context
+from segtpu_torch.core.bands import ShardGroup, band, shard_context
 
 
 class DeviceMesh:
@@ -217,37 +217,78 @@ def make_sharded_population_eval(eval_fn, mesh: DeviceMesh):
     return run
 
 
-def _data_only(mesh: DeviceMesh) -> List[torch.device]:
-    """The ``data`` axis's devices of a mesh whose ``space`` axis is 1."""
-    if mesh.shape["space"] != 1:
-        raise ValueError(
-            f"sharded training splits the batch over the 'data' axis only; "
-            f"a mesh with space = {mesh.shape['space']} is not ported (see "
-            f"ROADMAP.md Queue A, the space axis of sharded training)")
-    return _data_devices(mesh)
+def _run_shards(workers, mesh: DeviceMesh, fn, shards) -> list:
+    """``fn(rank, device, shard)`` for each device of the mesh (row-major
+    rank) and its shard, each in a thread of ``workers``, on its device,
+    inside ``shard_context`` (the whole mesh's group; its data row's
+    group along ``space``): the results in rank order. A shard that
+    fails lets the others' meetings go, and the first failure is raised
+    here."""
+    space = mesh.shape["space"]
+    group = ShardGroup(mesh.size)
+    rows = [ShardGroup(space) for _ in range(mesh.shape["data"])]
+
+    def run(r, dev, shard):
+        try:
+            on_dev = (torch.cuda.device(dev) if dev.type == "cuda"
+                      else contextlib.nullcontext())
+            with on_dev, shard_context(group, r, rows[r // space],
+                                       r % space):
+                return fn(r, dev, shard)
+        except BaseException:
+            # the other shards' waits raise instead of hanging
+            for g in (group, *rows):
+                g.abort()
+            raise
+
+    futures = [workers.submit(run, r, dev, shard) for r, (dev, shard)
+               in enumerate(zip(mesh.devices, shards))]
+    failed = [e for e in (f.exception() for f in futures) if e is not None]
+    if failed:
+        # the first failure, not the others' broken barriers
+        raise next((e for e in failed
+                    if not isinstance(e, threading.BrokenBarrierError)),
+                   failed[0])
+    return [f.result() for f in futures]
+
+
+def _shard_workers(mesh: DeviceMesh, owner) -> ThreadPoolExecutor:
+    """One long-lived thread a shard, shut down when ``owner`` is
+    collected: PyTorch keeps cuDNN's convolution plans per thread, and a
+    new thread each call would plan them anew."""
+    workers = ThreadPoolExecutor(max_workers=mesh.size,
+                                 thread_name_prefix="segtpu-shard")
+    weakref.finalize(owner, workers.shutdown, wait=False)
+    return workers
 
 
 def shard_batch(mesh: DeviceMesh, batch) -> List[dict]:
-    """A batch dict cut along N over the mesh's ``data`` axis: one dict a
-    device, in row order, with its rows of ``image``, ``label`` and the
-    optional ``teacher`` on that device (numpy or tensors in, tensors
-    out; other entries as they are). N must divide by the ``data`` axis,
-    else ``ValueError``; a mesh with ``space`` > 1 raises too. The JAX
-    package returns one array sharded over the mesh; here the shards are
-    a list, as PyTorch has no sharded tensor."""
-    devices = _data_only(mesh)
+    """A batch dict cut over the mesh as the JAX package places it
+    (``P("data", "space", None, None)``): one dict a device, in the
+    mesh's row-major order, with its part of ``image`` [N, H, W, 3] and
+    ``label`` [N, H, W] (N over ``data``, H over ``space``) and of the
+    optional ``teacher`` [N, K, h, w] (N over ``data``, its own h over
+    ``space``) on that device (numpy or tensors in, tensors out; other
+    entries as they are). Shard s of the ``space`` axis's n takes rows
+    [s*H//n, (s+1)*H//n), ``core.bands``'s rule (JAX's even split where
+    n divides H). N must divide by the ``data`` axis, else
+    ``ValueError``. The JAX package returns one array sharded over the
+    mesh; here the shards are a list, as PyTorch has no sharded
+    tensor."""
+    data, space = mesh.shape["data"], mesh.shape["space"]
     n = len(batch["image"])
-    if n % len(devices):
-        raise ValueError(f"batch {n} must divide the data axis "
-                         f"{len(devices)}")
-    per = n // len(devices)
+    if n % data:
+        raise ValueError(f"batch {n} must divide the data axis {data}")
+    per = n // data
     out = []
-    for r, dev in enumerate(devices):
+    for r, dev in enumerate(mesh.devices):
+        d, s = divmod(r, space)
         part = dict(batch)
-        for key in ("image", "label", "teacher"):
+        for key, axis in (("image", 1), ("label", 1), ("teacher", 2)):
             if key in batch:
-                part[key] = torch.as_tensor(
-                    batch[key])[r * per:(r + 1) * per].to(dev)
+                x = torch.as_tensor(batch[key])[d * per:(d + 1) * per]
+                lo, hi = band(x.shape[axis], space, s)
+                part[key] = x.narrow(axis, lo, hi - lo).to(dev)
         out.append(part)
     return out
 
@@ -255,37 +296,36 @@ def shard_batch(mesh: DeviceMesh, batch) -> List[dict]:
 def make_sharded_train_step(step_fn, mesh: DeviceMesh):
     """-> ``step(state, batch) -> (state, loss)``: ``step_fn`` (a
     ``make_train_step`` step, whose ``StepParts`` it reads) with the
-    batch (the unsharded step's dict) split over the mesh's ``data`` axis
-    by ``shard_batch``: up to rounding, the unsharded step on the whole
-    batch.
+    batch (the unsharded step's dict) cut over the mesh by
+    ``shard_batch``: up to rounding, the unsharded step on the whole
+    batch, on any (data, space) mesh.
 
     The state keeps one set of weights (``TrainState`` holds the module;
     the JAX package replicates a pytree). Each shard runs a skeleton of
     the model (a copy on the meta device) by ``torch.func.functional_call``
     on the state's weights moved to its device, in a thread of its own
     (the step keeps one a shard, shut down when the step is collected);
-    the shards meet at each train BatchNorm (``core.layers.shard_context``),
+    the shards meet at each train BatchNorm (``core.bands.shard_context``),
     which normalizes with the whole batch's moments and moves the running
-    stats once. The loss is every shard's NLL sums over the global counts
-    (``combine_loss_terms``). All of it is one autograd graph: one
-    backward of that loss gives the whole batch's gradients on the state's
-    weights, the optimizer's clip reads their norm, and the update and
-    Polyak run once. Nothing waits inside the backward, so logical shards
-    on one card (``[cuda:0] * n``) do not deadlock in autograd's one
-    worker thread for that card. A mesh with ``space`` > 1 raises
-    ``ValueError``."""
+    stats once. With ``space`` > 1 a shard holds a band of rows of each
+    activation, and the ops that read across rows meet its data row
+    (``core.bands``: convolutions gather the rows they read, the pool and
+    the resizes read the row's bands, sizes are global) where XLA's
+    partitioner inserts its halo exchanges. The loss is every shard's
+    NLL sums over the global counts (``combine_loss_terms``). All of it
+    is one autograd graph: one backward of that loss gives the whole
+    batch's gradients on the state's weights, the optimizer's clip reads
+    their norm, and the update and Polyak run once. Nothing waits inside
+    the backward, so logical shards on one card (``[cuda:0] * n``) do not
+    deadlock in autograd's one worker thread for that card."""
     from segtpu_torch.engine.trainer import (_check_genotype,
                                              combine_loss_terms)
     parts = getattr(step_fn, "parts", None)
     if parts is None:
         raise TypeError("make_sharded_train_step shards a make_train_step "
                         "step (one that carries its StepParts)")
-    devices = _data_only(mesh)
+    devices = mesh.devices
     skeletons = []     # [model, its skeleton for each shard]
-    # one long-lived thread a shard: PyTorch keeps cuDNN's convolution
-    # plans per thread, and a new thread each step would plan them anew
-    workers = ThreadPoolExecutor(max_workers=len(devices),
-                                 thread_name_prefix="segtpu-shard")
 
     def skeleton(model):
         if not skeletons or skeletons[0] is not model:
@@ -303,38 +343,22 @@ def make_sharded_train_step(step_fn, mesh: DeviceMesh):
         # rank 0 moves the running stats: into the state's own buffers,
         # or copies of them on its device, written back below
         buffers0 = {k: b.to(devices[0]) for k, b in buffers.items()}
-        group = ShardGroup(len(devices))
+        skels = skeleton(model)
 
-        def run(r, skel, dev, shard):
-            try:
-                tensors = {k: p.to(dev) for k, p in params.items()}
-                tensors.update(buffers0 if r == 0 else
-                               {k: b.to(dev) for k, b in buffers.items()})
-                skel.train()
+        def run(r, dev, shard):
+            tensors = {k: p.to(dev) for k, p in params.items()}
+            tensors.update(buffers0 if r == 0 else
+                           {k: b.to(dev) for k, b in buffers.items()})
+            skel = skels[r]
+            skel.train()
 
-                def forward(*args, **kwargs):
-                    return torch.func.functional_call(skel, tensors, args,
-                                                      kwargs)
+            def forward(*args, **kwargs):
+                return torch.func.functional_call(skel, tensors, args,
+                                                  kwargs)
 
-                on_dev = (torch.cuda.device(dev) if dev.type == "cuda"
-                          else contextlib.nullcontext())
-                with on_dev, shard_context(group, r):
-                    return parts.terms(forward, shard, dev)
-            except BaseException:
-                # the other shards' waits raise instead of hanging
-                group.abort()
-                raise
+            return parts.terms(forward, shard, dev)
 
-        futures = [workers.submit(run, *a) for a in zip(
-            range(len(devices)), skeleton(model), devices, shards)]
-        failed = [e for e in (f.exception() for f in futures)
-                  if e is not None]
-        if failed:
-            # the first failure, not the others' broken barriers
-            raise next((e for e in failed
-                        if not isinstance(e, threading.BrokenBarrierError)),
-                       failed[0])
-        terms = [f.result() for f in futures]
+        terms = _run_shards(workers, mesh, run, shards)
         with torch.no_grad():
             for k, b in buffers.items():
                 if buffers0[k] is not b:
@@ -342,25 +366,31 @@ def make_sharded_train_step(step_fn, mesh: DeviceMesh):
         loss = combine_loss_terms(terms, devices[0])
         return parts.update(state, loss), loss.detach()
 
-    weakref.finalize(step, workers.shutdown, wait=False)
+    workers = _shard_workers(mesh, step)
     return step
 
 
 def make_sharded_eval_step(eval_step, mesh: DeviceMesh):
     """-> ``eval(params, stats, batch) -> [K, K]``: ``eval_step`` (a
     ``make_eval_step`` step) on each shard of ``shard_batch`` with the
-    maps moved to the shard's device, the confusion matrices summed in
-    shard order onto the mesh's first device: the unsharded matrix,
-    exactly. A mesh with ``space`` > 1 raises ``ValueError``."""
-    devices = _data_only(mesh)
+    maps moved to the shard's device, a thread a shard as the train
+    step's (on a mesh with ``space`` > 1 the shards of a row meet at the
+    ops that read across rows), the confusion matrices summed in shard
+    order onto the mesh's first device: the unsharded matrix, exactly,
+    where no argmax is a near-tie that the bands' sum order flips."""
+    devices = mesh.devices
 
     def run(params, stats, batch):
+        def one(r, dev, shard):
+            return eval_step({k: p.to(dev) for k, p in params.items()},
+                             {k: s.to(dev) for k, s in stats.items()},
+                             shard)
+
         total = None
-        for dev, shard in zip(devices, shard_batch(mesh, batch)):
-            cm = eval_step({k: p.to(dev) for k, p in params.items()},
-                           {k: s.to(dev) for k, s in stats.items()},
-                           shard).to(devices[0])
+        for cm in _run_shards(workers, mesh, one, shard_batch(mesh, batch)):
+            cm = cm.to(devices[0])
             total = cm if total is None else total + cm
         return total
 
+    workers = _shard_workers(mesh, run)
     return run

@@ -43,7 +43,7 @@ from segtpu_torch.models.segmenter import Segmenter
 from segtpu_torch.rl.agent import create_agent, sample_genotype, train_agent
 from segtpu_torch.rl.controller import (MicroControllerSpec,
                                         TemplateControllerSpec)
-from segtpu_torch.utils.helpers import resolve_device
+from segtpu_torch.utils.helpers import deterministic, resolve_device
 from segtpu_torch.utils.metrics import confusion_matrix, mean_iou
 from segtpu_torch.utils.saver import SearchSaver
 from segtpu_torch.utils.solvers import create_optimisers, sgd_chain
@@ -271,10 +271,13 @@ def describe(genotype) -> str:
     return repr(genotype)
 
 
+@deterministic()
 def run_search(cfg: SearchConfig, *, dataset=None, encoder=None,
                teacher=None, device="cuda"):
-    """The whole NAS loop on ``device``. Returns the ``SearchSaver``
-    (history and best genotypes).
+    """The whole NAS loop on ``device``, under deterministic algorithms
+    (``utils.helpers.deterministic``, the caller's settings restored
+    after), so its rewards are the same run to run from ``cfg.seed``.
+    Returns the ``SearchSaver`` (history and best genotypes).
 
     ``encoder``: a ``MobileNetV2`` to search on (by default one from
     ``cfg.seed``, or ``cfg.enc_ckpt``'s weights); ``teacher``: a trained

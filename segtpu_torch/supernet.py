@@ -61,6 +61,7 @@ from segtpu_torch.core.layers import Conv, ConvBN
 from segtpu_torch.core.resize import resize_bilinear
 from segtpu_torch.engine.trainer import _labels_to, segmentation_loss
 from segtpu_torch.ops.layer_factory import NUM_OPS, OP_NAMES, Op
+from segtpu_torch.utils.helpers import deterministic
 from segtpu_torch.utils.metrics import confusion_matrix
 from segtpu_torch.utils.solvers import (PopulationSGD, polyak_decay,
                                         polyak_update, sgd_chain)
@@ -622,9 +623,11 @@ def _stage1(pop, masks, cached_train, cached_val, train_step, eval_step,
     return pop, np.asarray(cms), steps
 
 
+@deterministic()
 def run_supernet_search(cfg, *, population: int = 8, dataset=None,
                         encoder=None, mesh=None, device="cuda"):
-    """NAS search with the vectorised population trainer. Each round
+    """NAS search with the vectorised population trainer, under
+    deterministic algorithms as ``search.run_search``. Each round
     samples ``population`` genotypes, trains them at once from a fresh
     population for ``cfg.num_epochs[0]`` epochs of the cached taps
     (stage 1 only), rewards each with its val mIoU and makes one batched

@@ -31,13 +31,19 @@ the mesh). The port's is held to that:
 * ``run_training(data_parallel=True)`` on one device: the unsharded run,
   bit for bit; over ``devices=[cpu] * 2``: the sharded step, each loss
   at rtol 2e-4 of the unsharded run's, which ghost BN fails;
-* a mesh with ``space`` > 1 raises ``ValueError``; a shard that fails
-  raises in the caller and the other shards do not hang.
+* a shard that fails raises in the caller and the other shards do not
+  hang.
+
+The step, spread and fault helpers take a genotype and a ``space`` axis:
+tests/test_torch_space_parallel.py holds the ``space`` axis to the same
+rule with them.
 """
 
+import contextlib
 import copy
 import functools
 import threading
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -54,14 +60,15 @@ from segtpu.parallel.mesh import \
 
 from segtpu_torch.convert import load_jax_params
 from segtpu_torch.core import layers
-from segtpu_torch.core.layers import ShardGroup, bn_train, shard_context
+from segtpu_torch.core.bands import ShardGroup, shard_context
+from segtpu_torch.core.layers import bn_train
 from segtpu_torch.data.datasets import BatchLoader, SyntheticDataset
 from segtpu_torch.engine import trainer
 from segtpu_torch.engine.trainer import (combine_loss_terms,
                                          init_train_state, make_eval_step,
                                          make_train_step,
                                          segmentation_loss_terms)
-from segtpu_torch.models import ARCHS, create_segmenter
+from segtpu_torch.models import ARCHS, TEMPLATE_ARCHS, create_segmenter
 from segtpu_torch.models.segmenter import Segmenter
 from segtpu_torch.parallel import (make_mesh, make_sharded_eval_step,
                                    make_sharded_train_step, shard_batch)
@@ -72,7 +79,8 @@ from test_torch_layers import perturb_bn
 
 K = 5
 N, HW = 4, 64
-GENOTYPE = ARCHS["arch2"]
+ARCH = "arch2"
+GENOTYPE = ARCHS[ARCH]
 AUX_WEIGHT = 0.15
 OPT = dict(enc_lr=1e-3, dec_lr=3e-3, enc_wd=1e-2, dec_wd=1e-3,
            enc_grad_clip=3.0, dec_grad_clip=3.0)
@@ -119,8 +127,8 @@ def _batch(reverse=False, seed=0):
 
 
 @functools.lru_cache(maxsize=None)
-def _model():
-    return create_segmenter(GENOTYPE, K, aux=True, device="cpu",
+def _model(arch=ARCH):
+    return create_segmenter({**ARCHS, **TEMPLATE_ARCHS}[arch], K, aux=True, device="cpu",
                             generator=torch.Generator().manual_seed(0))
 
 
@@ -149,29 +157,31 @@ def _mean_of_shard_means(shard_terms, device):
     return loss
 
 
+FAULT_PATCHES = {
+    "ghost_bn": (layers, "_batch_moments", _local_moments),
+    "mean_of_shard_means": (trainer, "combine_loss_terms",
+                            _mean_of_shard_means)}
+
+
 @functools.lru_cache(maxsize=None)
-def _run(n=None, reverse=False, fault=None):
-    """(state before, state after) of one step from the seeded model: the
-    unsharded step (``n`` None) or the step sharded over ``[cpu] * n``,
-    with ``fault`` planted."""
-    model = copy.deepcopy(_model())
+def _run(n=None, reverse=False, fault=None, arch=ARCH, space=1):
+    """(state before, state after) of one step of ``arch`` from the
+    seeded model: the unsharded step (``n`` None) or the step sharded
+    over an (n, ``space``) mesh of logical CPU devices, with ``fault``
+    planted: a key of ``FAULT_PATCHES`` or a (module, name, value)
+    patch."""
+    model = copy.deepcopy(_model(arch))
     opt = create_optimisers(**OPT)
     state = init_train_state(model, opt, do_polyak=True)
-    saved = layers._batch_moments, trainer.combine_loss_terms
-    if fault == "ghost_bn":
-        layers._batch_moments = _local_moments
-    elif fault == "mean_of_shard_means":
-        trainer.combine_loss_terms = _mean_of_shard_means
-    try:
-        step = make_train_step(GENOTYPE, opt, num_classes=K,
+    with (mock.patch.object(*FAULT_PATCHES.get(fault, fault)) if fault
+          else contextlib.nullcontext()):
+        step = make_train_step(model.genotype, opt, num_classes=K,
                                aux_weight=AUX_WEIGHT)
         if n:
-            step = make_sharded_train_step(step,
-                                           make_mesh(n, devices=["cpu"] * n))
+            step = make_sharded_train_step(step, make_mesh(
+                n, space, devices=["cpu"] * (n * space)))
         before = _snap(state)
         state, loss = step(state, _batch(reverse))
-    finally:
-        layers._batch_moments, trainer.combine_loss_terms = saved
     return before, _snap(state, loss)
 
 
@@ -181,12 +191,12 @@ def _dist(a, b, group) -> float:
         for k in a if k.startswith(group + "."))))
 
 
-def _errors(what, got):
+def _errors(what, got, arch=ARCH):
     """[(group, error, limit, spread, update)]: ``got``'s L2 distance to
     the unsharded step's ``what``, and its limit from the unsharded
     step's own spread (reversed batch) and move."""
-    before, want = _run()
-    _, reversed_ = _run(reverse=True)
+    before, want = _run(arch=arch)
+    _, reversed_ = _run(reverse=True, arch=arch)
     out = []
     for group in ("encoder", "decoder"):
         spread = _dist(reversed_[what], want[what], group)
@@ -197,25 +207,40 @@ def _errors(what, got):
     return out
 
 
-def _loss_error(got) -> float:
-    want = _run()[1]["loss"]
+def _loss_error(got, arch=ARCH) -> float:
+    want = _run(arch=arch)[1]["loss"]
     return abs(got["loss"] - want) / abs(want)
+
+
+def _holds(got, what, arch=ARCH):
+    """Assert a sharded step's snapshot ``got`` within the rule for
+    ``what`` ("params" holds the parameters and the momentum traces)."""
+    if what == "loss":
+        assert _loss_error(got, arch) <= LOSS_RTOL, (
+            got["loss"], _run(arch=arch)[1]["loss"])
+        return
+    for key in ("params", "trace") if what == "params" else (what,):
+        for group, err, limit, spread, update in _errors(key, got, arch):
+            assert err <= limit, (key, group, err, limit)
+            if key != "stats":
+                # the limit still catches a step skipped or taken twice
+                assert SPREAD * spread < update, (key, group)
+
+
+def _fails(got, keys, arch=ARCH):
+    """Assert a faulty step's snapshot ``got`` outside the rule: the
+    loss, and every group of each of ``keys``."""
+    assert _loss_error(got, arch) > LOSS_RTOL
+    for key in keys:
+        for group, err, limit, _, _ in _errors(key, got, arch):
+            assert err > limit, (key, group, err, limit)
 
 
 @pytest.mark.parametrize("n", SHARDS)
 @pytest.mark.parametrize("what", ["loss", "params", "stats", "polyak"])
 def test_sharded_step_matches_unsharded(n, what):
     """"params" holds the parameters and the momentum traces."""
-    got = _run(n)[1]
-    if what == "loss":
-        assert _loss_error(got) <= LOSS_RTOL, (got["loss"], _run()[1]["loss"])
-        return
-    for key in ("params", "trace") if what == "params" else (what,):
-        for group, err, limit, spread, update in _errors(key, got):
-            assert err <= limit, (key, group, err, limit)
-            if key != "stats":
-                # the limit still catches a step skipped or taken twice
-                assert SPREAD * spread < update, (key, group)
+    _holds(_run(n)[1], what)
 
 
 @pytest.mark.parametrize("n", SHARDS)
@@ -225,27 +250,22 @@ def test_planted_faults_fail_the_limits(fault, n):
     loss, and every group's parameters, traces and Polyak averages, out
     of ``test_sharded_step_matches_unsharded``'s limits; ghost BN the
     running stats too."""
-    got = _run(n, fault=fault)[1]
-    assert _loss_error(got) > LOSS_RTOL
-    keys = ["params", "trace", "polyak"]
-    if fault == "ghost_bn":
-        keys.append("stats")
-    for key in keys:
-        for group, err, limit, _, _ in _errors(key, got):
-            assert err > limit, (fault, key, group, err, limit)
+    _fails(_run(n, fault=fault)[1], ["params", "trace", "polyak"]
+           + (["stats"] if fault == "ghost_bn" else []))
 
 
 # ------------------------------------------------------------ components
 
 
-def _in_threads(n, fn):
-    """fn(rank) in n threads of one ShardGroup; the results in rank order."""
+def _in_threads(n, fn, row=False):
+    """fn(rank) in n threads of one ShardGroup (with ``row``, also one
+    row of n shards); the results in rank order."""
     group = ShardGroup(n)
     out, errors = [None] * n, []
 
     def run(r):
         try:
-            with shard_context(group, r):
+            with shard_context(group, r, group if row else None, r):
                 out[r] = fn(r)
         except BaseException as e:  # noqa: B036 - asserted below
             errors.append(e)
@@ -358,33 +378,41 @@ def test_combined_loss_is_jax_loss_on_the_whole_batch(kd):
 # ------------------------------------------------------------------ eval
 
 
+def _eval_matches_unsharded_and_jax(genotype, data, space=1):
+    """Assert the eval sharded over a (data, space) mesh gives the
+    unsharded eval's confusion matrix and JAX's sharded eval's on the
+    same weights (JAX's init with BatchNorm perturbed, carried over by
+    ``load_jax_params``)."""
+    p, s = jax.tree.map(np.asarray, segmenter_init(
+        jax.random.PRNGKey(0), genotype, num_classes=K, aux=True))
+    p, s = perturb_bn(p, s, np.random.default_rng(0))
+    model = load_jax_params(
+        Segmenter(genotype, K, aux=True,
+                  generator=torch.Generator().manual_seed(0)), p, s)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    stats = dict(model.named_buffers())
+    b = _batch(seed=1)
+    ev = make_eval_step(genotype, num_classes=K)
+    want = ev(params, stats, b)
+    got = make_sharded_eval_step(ev, make_mesh(
+        data, space, devices=["cpu"] * (data * space)))(params, stats, b)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    valid = (b["label"] >= 0) & (b["label"] < K)
+    assert int(got.sum()) == int(valid.sum())
+    jax_cm = jax_make_sharded_eval_step(
+        jax_make_eval_step(genotype, num_classes=K),
+        jax_make_mesh(data, space, devices=jax.devices("cpu")))(
+        p, s, {"image": jnp.asarray(b["image"]),
+               "label": jnp.asarray(b["label"])})
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_cm))
+
+
 @pytest.mark.parametrize("n", SHARDS)
 def test_sharded_eval_matches_unsharded_and_jax(n):
     """The sharded eval's confusion matrix equals the unsharded one's and
     JAX's sharded eval's on the same weights (JAX's init with BatchNorm
     perturbed, carried over by ``load_jax_params``)."""
-    p, s = jax.tree.map(np.asarray, segmenter_init(
-        jax.random.PRNGKey(0), GENOTYPE, num_classes=K, aux=True))
-    p, s = perturb_bn(p, s, np.random.default_rng(0))
-    model = load_jax_params(
-        Segmenter(GENOTYPE, K, aux=True,
-                  generator=torch.Generator().manual_seed(0)), p, s)
-    params = {k: v.detach() for k, v in model.named_parameters()}
-    stats = dict(model.named_buffers())
-    b = _batch(seed=1)
-    ev = make_eval_step(GENOTYPE, num_classes=K)
-    want = ev(params, stats, b)
-    got = make_sharded_eval_step(ev, make_mesh(n, devices=["cpu"] * n))(
-        params, stats, b)
-    np.testing.assert_array_equal(got.numpy(), want.numpy())
-    valid = (b["label"] >= 0) & (b["label"] < K)
-    assert int(got.sum()) == int(valid.sum())
-    jax_cm = jax_make_sharded_eval_step(
-        jax_make_eval_step(GENOTYPE, num_classes=K),
-        jax_make_mesh(n, 1, devices=jax.devices("cpu")))(
-        p, s, {"image": jnp.asarray(b["image"]),
-               "label": jnp.asarray(b["label"])})
-    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_cm))
+    _eval_matches_unsharded_and_jax(GENOTYPE, n)
 
 
 # ----------------------------------------------------------- shard_batch
@@ -402,21 +430,6 @@ def test_shard_batch_splits_along_n():
         assert s["teacher"].shape == (2, K, 16, 16) and s["name"] == "kept"
     with pytest.raises(ValueError, match="divide"):
         shard_batch(make_mesh(3, devices=["cpu"] * 3), b)
-
-
-@pytest.mark.parametrize("what", ["shard_batch", "train", "eval"])
-def test_space_axis_raises(what):
-    mesh = make_mesh(1, 2, devices=["cpu"] * 2)
-    opt = create_optimisers()
-    with pytest.raises(ValueError, match="space"):
-        if what == "shard_batch":
-            shard_batch(mesh, _batch())
-        elif what == "train":
-            make_sharded_train_step(
-                make_train_step(GENOTYPE, opt, num_classes=K), mesh)
-        else:
-            make_sharded_eval_step(make_eval_step(GENOTYPE, num_classes=K),
-                                   mesh)
 
 
 def test_sharded_step_takes_make_train_steps_only():
