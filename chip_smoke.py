@@ -292,6 +292,30 @@ Phases, each a hard failure (non-zero exit) when it fails:
    (every band reading zeros past its cuts), which must fail the rule.
    The ms of each step against the unsharded step's, and the peak memory
    of each (every shard on the one card: not a shard's own).
+16. bench (run after phase 9's rows, before phase 10): the engine's
+   per-shape programs as CUDA graphs (utils.aot.aot_graph). Every other
+   phase runs with SEGTPU_NO_AOT=1, which main sets first: their launch
+   counts and kernel times are the eager calls' (a replay counts no
+   launch); this phase clears it (graphs(True)). (a) The graph's masks
+   against the eager program's (SEGTPU_NO_AOT=1), same weights, bit for
+   bit: arch0 b8 1024x2048, G2 b8 512x512 (the W-first tail), template0
+   b8 1024x2048 and an odd 999x1501 frame (normalize_on_device), each
+   program a captured graph; each timed as a graph and eagerly (CUDA
+   events, device-resident), and arch0's bucket's graph pool and peak
+   memory printed. (b) A second call on other frames leaves the first
+   call's output as it was. (c) After cache_clear() on every bounded
+   tap-table cache (TABLE_CACHES) and zeros written over every free block
+   of the caching allocator, a replay gives the same masks (the program
+   holds what its launches read). (d) segtpu_torch.bench in this process
+   for arch0 at b8 1024x2048 (BENCH_SMOKE_ENV: 4 batches, 2 passes), then
+   in a fresh process, which must report aot_hit true; each 0 <
+   pct_of_attainable <= 100 (a rate above the roofline's attainable one
+   means a wrong count); the roofline's per-kernel attainable ms printed
+   beside bounds(). (e) arch1 and arch2 at b8 1024x2048: masks through
+   their graphs against their use_kernels=False runs by the slice rule at
+   MASK_FLOOR["arch0"], then their bench lines, held as in (d). The
+   pw_chain_chw and pw_multi_chw calls of phase 5 are also timed as a
+   CUDA graph's launches (graph_ms in their rows).
 
 Prints the kernels JSON line (each row also with its launches on
 template0's path) and the card's name and power limit, then, last,
@@ -334,7 +358,15 @@ its run over two logical shards under ghost BN; phase 14's two, on the
 checkpoint of the next seed; phase 11's and 12's reproducibility checks
 with each pair's second run from the next seed (a control that any code
 fails: it shows that the checks read the rewards); and phase 15's three
-steps and its eval under zero halos.
+steps and its eval under zero halos; and phase 16's (bench_control),
+each on a fault it must see: (a) each path's graph captured under the
+rounding against the eager call without it, (b) the held output read
+from the program's static buffer, (c) the program's held tensors let go,
+(d) the fresh process's build directory without the front's library
+(aot_hit false) and every bench rate held to the roofline of a frame 16
+times larger (a control that any code fails: it shows that the check
+reads the roofline's count), (e) arch1's and arch2's graphs under the
+rounding.
 The checks that hold kernels against kernels (sharded or data mode
 against the unsharded engine) and phase 10's card against the CPU are
 not in it: the rounding moves both sides alike.
@@ -1201,6 +1233,14 @@ def phase_decoder(torch, res):
                       f"{bms:.4f} ms, f32 FMA floor {fma_ms:.4f} ms")
                 stage_ms.append((path, name, list(shape), ms, plain_ms,
                                  lib_ms, bms, fma_ms))
+                if name in ("pw_chain_chw", "pw_multi_chw"):
+                    # host-bound calls: the card's time as a CUDA graph's
+                    # launches, without the Python that issues them
+                    from segtpu_torch.kernels.stem_tail_probe import graph_ms
+                    r["graph_ms"] = graph_ms(torch,
+                                             lambda: replay(fn, a, True))
+                    print(f"[timing] {path} call {i:2d} {name} {shape}: "
+                          f"{r['graph_ms']!r} ms as a CUDA graph's launches")
                 for key, v in (("ms", ms), ("plain_ms", plain_ms),
                                ("library_ms", lib_ms), ("bytes", nb),
                                ("dot", dot), ("f32", f32), ("n", 1)):
@@ -1257,6 +1297,7 @@ def flat_tail(torch, logits, r, stage_ms):
     from segtpu_torch.kernels.upsample_argmax import (
         upsample_argmax, upsample_argmax_flat, upsample_argmax_flat_plain)
     from segtpu_torch.scripts import cuda_ms as adaptive_ms, turns_ms
+    from segtpu_torch.utils.roofline import tail_work
     b, k, h, w = logits.shape
     flat = logits.reshape(b, k, h * w)
     for _, run in flat_tail_checks(torch, logits):
@@ -1280,11 +1321,10 @@ def flat_tail(torch, logits, r, stage_ms):
           f"{r['graph_ms']!r} ms, H-first tail {four_d_graph_ms!r} ms")
     stage_ms.append(("G2", "upsample_argmax_flat", [b, H2, W2], ms, plain_ms,
                      lib_ms))
+    # the W-first counts the roofline uses
     r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, n=1,
-             bytes=logits.numel() * logits.element_size() + b * H2 * W2,
-             # W pass 2 mul + 1 add per (class, input row, output column),
-             # H pass 2 mul + 1 add and 1 compare per (class, output pixel)
-             dot=0, f32=b * k * W2 * (3 * h + 4 * H2))
+             **dict(zip(("bytes", "dot", "f32"), tail_work(
+                 H2, W2, k, b, logits.element_size(), flat=True))))
 
 
 def phase_decoder_forms(torch):
@@ -2497,17 +2537,12 @@ def bounds(work):
     overlap). ``work`` holds the encoder and decoder kernels' bytes and
     operations summed over their measured launches."""
     from segtpu_torch.scripts import bound_ms
-    hp2, wp2 = H // 2, W // 2
-    front_bytes = N * H * W * 3 + N * 12 * hp2 * wp2 * 2
-    front_ops = N * 12 * hp2 * wp2 * 2                   # one mul, one add
-    h, w = H // 4, W // 4
-    tail_bytes = N * K * h * w * 2 + N * H * W
-    # H pass shared by the output columns: 2 mul + 1 add per (row, input
-    # column); W pass: 2 mul + 1 add per output pixel; 1 compare each
-    tail_ops = N * K * H * (3 * w + 4 * W)
+    from segtpu_torch.utils.roofline import front_work, tail_work
     work = dict(work)
-    work["front"] = dict(bytes=front_bytes, dot=0, f32=front_ops)
-    work["upsample_argmax"] = dict(bytes=tail_bytes, dot=0, f32=tail_ops)
+    # the counts the roofline uses (one source for both)
+    for name, counts in (("front", front_work(H, W, N)),
+                         ("upsample_argmax", tail_work(H, W, K, N))):
+        work[name] = dict(zip(("bytes", "dot", "f32"), counts))
     return {name: bound_ms(r["bytes"], r["dot"], r["f32"], r.get("issue", 0))
             for name, r in work.items()}
 
@@ -2790,6 +2825,7 @@ def phase_control(torch, bits: int) -> dict:
     res.update(data_parallel_control(torch))
     res.update(fidelity_control(torch))
     res.update(space_control(torch))
+    res.update(bench_control(torch, bits))
     return res
 
 
@@ -4889,6 +4925,375 @@ def space_control(torch) -> dict:
             for what, ok, detail in checks}
 
 
+# --------------------------------------------------------------- bench
+
+BENCH_SMOKE_ENV = {"BENCH_SCAN": "4", "BENCH_REPS": "2"}
+BENCH_FRESH_TIMEOUT = 300
+# the tap-table caches of the kernels, bounded: a live graph must not
+# read a table one of them evicted
+TABLE_CACHES = (("segtpu_torch.kernels.upsample_argmax", "_device_tables"),
+                ("segtpu_torch.kernels.upsample_argmax", "_shard_tables"),
+                ("segtpu_torch.kernels.upsample_argmax",
+                 "_flat_device_tables"),
+                ("segtpu_torch.kernels.resize_chw", "_device_tables"))
+# a frame 16 times larger: the control's wrong roofline count
+ROOF_CONTROL_SCALE = 4
+
+
+@contextlib.contextmanager
+def graphs(on: bool):
+    """``SEGTPU_NO_AOT`` cleared (programs made inside are CUDA graphs)
+    or set (eager), and restored afterwards. ``main`` sets it for every
+    phase but this one: their launch counts and kernel times are the
+    eager calls'."""
+    saved = os.environ.pop("SEGTPU_NO_AOT", None)
+    if not on:
+        os.environ["SEGTPU_NO_AOT"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("SEGTPU_NO_AOT", None)
+        if saved is not None:
+            os.environ["SEGTPU_NO_AOT"] = saved
+
+
+def program_of(seg, x):
+    """The engine's program of the uint8 batch ``x`` (a device tensor)."""
+    return seg._compiled(tuple(x.shape[1:3]), False, tuple(x.shape))
+
+
+BENCH_PATHS = (("arch0 b8", None, (N, H, W, 3), 0),
+               ("G2 b8", G2, (N, H2, W2, 3), 0),
+               ("template0 b8", "template0", (N, H, W, 3), TEMPLATE_SEED),
+               ("arch0 odd frame", None, (1, 999, 1501, 3), 0))
+
+
+def bench_model(torch, genotype, seed):
+    from segtpu_torch.models import TEMPLATE_ARCHS
+    if genotype == "template0":
+        genotype = TEMPLATE_ARCHS["template0"]
+    return make_model(torch, genotype, seed)
+
+
+def graph_vs_eager(torch, what, model, frames, graph_ctx=None):
+    """(a): the engine's CUDA-graph program against its eager program
+    (``SEGTPU_NO_AOT=1``) on the same weights and frames, bit for bit;
+    the graph made inside ``graph_ctx`` (a control's rounding), the eager
+    run outside it. Returns (graph engine, device frames, masks, ms of
+    the graph and the eager call)."""
+    from segtpu_torch.engine import Segmenter
+    x = torch.from_numpy(frames).cuda()
+    with graphs(False):
+        eager = Segmenter(model, device="cuda")
+        want = eager.predict_batch(x)
+    with graphs(True), (graph_ctx or contextlib.nullcontext()):
+        seg = Segmenter(model, device="cuda")
+        got = seg.predict_batch(x)
+    prog = program_of(seg, x)
+    check(prog.graph is not None, f"{what}: no CUDA graph was captured")
+    same = bool(torch.equal(got, want))
+    print(f"[bench] (a) {what} {tuple(frames.shape)}: graph masks bit-equal "
+          f"to eager: {same}; {len(prog.held)} storages held, capture "
+          f"{prog.capture_s:.3f} s")
+    check(same, f"{what}: the graph's masks differ from the eager call's "
+          f"on {int((got != want).sum())} pixels")
+    return seg, eager, x, want
+
+
+def graph_pool_bytes(torch, prog) -> int:
+    """The bytes the caching allocator keeps in ``prog``'s graph's private
+    pool (its segments' sizes)."""
+    pool = tuple(prog.graph.pool())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def held_output_check(torch, seg, x, x2, read_static=False):
+    """(b): a second call on other frames leaves the first call's output
+    as it was. ``read_static``: the control, which reads the program's
+    static output instead (what a program without its clone returns)."""
+    out = seg.predict_batch(x)
+    if read_static:
+        out = program_of(seg, x).static_out
+    kept = out.clone()
+    out2 = seg.predict_batch(x2)
+    moved = int((out != kept).sum())
+    print(f"[bench] (b) held output after a call on other frames: "
+          f"{moved} pixels moved (the other call's masks differ on "
+          f"{int((out2 != kept).sum())})")
+    check(bool((out2 != kept).any()), "the other frames give the same masks")
+    check(moved == 0, f"a held output changed on {moved} pixels")
+
+
+def scribble_free_memory(torch):
+    """Zeros over every free block of the caching allocator's default pool,
+    each allocated on its block's stream: memory a tensor freed is then
+    another tensor's. Returns the allocations (free them after)."""
+    keep = []
+    for segment in torch.cuda.memory_snapshot():
+        if tuple(segment.get("segment_pool_id", (0, 0))) != (0, 0):
+            continue                                  # a graph's pool
+        stream = torch.cuda.ExternalStream(segment["stream"]) \
+            if segment["stream"] else torch.cuda.default_stream()
+        with torch.cuda.stream(stream):
+            for block in segment["blocks"]:
+                if block["state"] == "inactive":
+                    keep.append(torch.zeros(block["size"], dtype=torch.uint8,
+                                            device="cuda"))
+    torch.cuda.synchronize()
+    return keep
+
+
+def cleared_caches_check(torch, seg, x, want, drop_held=False):
+    """(c): after ``cache_clear()`` on every bounded tap-table cache and
+    zeros written over every free block, a replay gives the same masks.
+    ``drop_held``: the control, whose program lets go of the tensors it
+    held (what a program that holds nothing reads)."""
+    import gc
+    import importlib
+    prog = program_of(seg, x)
+    if drop_held:
+        prog.held = ()
+    for mod, name in TABLE_CACHES:
+        getattr(importlib.import_module(mod), name).cache_clear()
+    gc.collect()
+    keep = scribble_free_memory(torch)
+    got = seg.predict_batch(x)
+    moved = int((got != want).sum())
+    del keep
+    print(f"[bench] (c) replay after the tap tables' caches were cleared "
+          f"and the free memory zeroed: {moved} pixels differ")
+    check(moved == 0, f"a replay after cleared caches differs on {moved} "
+          f"pixels")
+
+
+def attainable_check(rec, what, scale=1):
+    """(d): 0 < pct_of_attainable <= 100; ``scale`` > 1 holds the rate to
+    the roofline of a frame scale^2 times larger (the control's count)."""
+    from segtpu_torch.utils.roofline import compute_roofline
+    h, w = (int(v) for v in rec["metric"].split("_")[1].split("x"))
+    arch = rec["metric"].split("_")[2]
+    roof = compute_roofline(h * scale, w * scale, arch, num_classes=K)
+    pct = 100 * rec["value"] / roof["attainable_ips"]
+    print(f"[bench] (d) {what}: {rec['value']!r} images/s is {pct!r} % of "
+          f"the attainable {roof['attainable_ips']!r}")
+    check(0 < pct <= 100, f"{what}: {pct} % of the roofline's attainable "
+          f"rate: a count of the roofline is wrong")
+
+
+def bench_in_process(torch, arch):
+    """``segtpu_torch.bench`` at b8 1024x2048 for ``arch``, the phase's
+    small BENCH_SCAN and BENCH_REPS, in this process, graphs on."""
+    from segtpu_torch import bench
+    saved = {k: os.environ.get(k) for k in BENCH_SMOKE_ENV}
+    os.environ.update(BENCH_SMOKE_ENV)
+    try:
+        with graphs(True):
+            rec = bench.run("cuda", arch)
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    print(f"[bench] {json.dumps(rec)}")
+    return rec
+
+
+def bench_fresh(cache_dir=None):
+    """``python -m segtpu_torch.bench`` for arch0 in a fresh process,
+    graphs on (``cache_dir``: SEGTPU_CACHE_DIR). Returns its record."""
+    env = {k: v for k, v in os.environ.items() if k != "SEGTPU_NO_AOT"}
+    env.update(BENCH_SMOKE_ENV)
+    if cache_dir is not None:
+        env["SEGTPU_CACHE_DIR"] = cache_dir
+    out = subprocess.run(
+        [sys.executable, "-m", "segtpu_torch.bench", "--arch", "arch0"],
+        env=env,
+        capture_output=True, text=True, timeout=BENCH_FRESH_TIMEOUT,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(out.returncode == 0,
+          f"the fresh bench failed:\n{out.stderr[-3000:]}")
+    for line in out.stderr.splitlines():
+        if line.startswith("#"):
+            print(f"[bench] fresh process {line}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"[bench] fresh process {json.dumps(rec)}")
+    return rec
+
+
+def aot_hit_check(rec, what):
+    check(rec["aot_hit"] is True, f"{what}: aot_hit {rec['aot_hit']} in a "
+          f"process that should have built nothing (build_s "
+          f"{rec['build_s']})")
+
+
+def cache_missing_one():
+    """A build directory holding every library of this checkout but the
+    front's: a fresh process there must build it (the control's cold
+    start)."""
+    import shutil
+    import tempfile
+    from segtpu_torch.kernels import _build
+    tmp = tempfile.mkdtemp(prefix="segtpu_bench_cache_")
+    for name in _build.KERNEL_SOURCES:
+        if name != "front":
+            lib = _build.library_path(name)
+            shutil.copy(lib, tmp)
+    return tmp
+
+
+def arch_masks(torch, arch, frames, ctx=None):
+    """(e): ``arch``'s b8 masks through its graph (made inside ``ctx``)
+    against its use_kernels=False run (eager), by the slice rule at
+    arch0's MASK_FLOOR."""
+    from segtpu_torch.engine import Segmenter
+    from segtpu_torch.models import ARCHS
+    model = make_model(torch, ARCHS[arch])
+    x = torch.from_numpy(frames).cuda()
+    with graphs(False):
+        ref = Segmenter(model, device="cuda", use_kernels=False)
+        want = ref.predict_batch(x)
+        gaps = tie_gaps(torch, ref, x)
+    with graphs(True), (ctx or contextlib.nullcontext()):
+        got = Segmenter(model, device="cuda").predict_batch(x)
+    return masks_hold(torch, got, want, gaps, MASK_FLOOR["arch0"],
+                      f"{arch} b8 masks vs use_kernels=False")
+
+
+def roofline_beside_bounds(b):
+    """The roofline's per-kernel attainable ms at b8 1024x2048 (arch0)
+    beside ``bounds()``'s (``b``: {kernel: (ms, by)} of the measured
+    launches)."""
+    from segtpu_torch.utils.roofline import compute_roofline
+    blocks = compute_roofline(H, W, "arch0", num_classes=K,
+                              detail=True)["blocks"]
+    att = {blk["name"]: N * blk["attain_ms"] for blk in blocks}
+    enc = sum(v for n, v in att.items() if n.startswith("b") and "-s" in n)
+    dec = sum(v for n, v in att.items()
+              if n.startswith(("dec-", "cell@", "clf")))
+    rows = [("front", att["front"], b["front"][0]),
+            ("encoder blocks", enc,
+             b["inv_res_chw"][0] + b["inv_res_s2_chw"][0]),
+            ("decoder (bounds(): its 1x1s are in conv_chw's row)", dec,
+             sum(b[n][0] for n in ("pw_chain_chw", "sep_conv_chw",
+                                   "cell_op_chw", "resize_chw"))),
+            ("tail", att["tail"], b["upsample_argmax"][0])]
+    for name, a, bd in rows:
+        print(f"[bench] roofline attainable {name}: {a:.4f} ms a b8 call; "
+              f"bounds() of its kernels' launches: {bd:.4f} ms")
+    print(f"[bench] roofline blocks (ms a b8 call): "
+          f"{ {n: round(v, 6) for n, v in att.items()} } (bounds(): the "
+          f"stem is inside conv_chw's {b['conv_chw'][0]:.4f} ms, with the "
+          f"decoder's 1x1s)")
+    return att
+
+
+def phase_bench(torch, b):
+    """The programs of the engine's cache as CUDA graphs and the bench:
+    (a)-(e), with graphs on (``graphs(True)``). Returns the records."""
+    t_phase = time.perf_counter()
+    gpu = gpu_line()
+    res = {"graph_vs_eager_ms": {}}
+    rng = np.random.default_rng(3)
+    for what, genotype, shape, seed in BENCH_PATHS:
+        frames = rng.integers(0, 256, shape, dtype=np.uint8)
+        model = bench_model(torch, genotype, seed)
+        if what == "arch0 b8":
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        seg, eager, x, want = graph_vs_eager(torch, what, model, frames)
+        if what == "arch0 b8":
+            res["arch0_b8_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                        - base) / 2 ** 30
+            res["arch0_b8_pool_gib"] = graph_pool_bytes(
+                torch, program_of(seg, x)) / 2 ** 30
+            print(f"[bench] arch0 b8 {H}x{W} bucket: the graph's private "
+                  f"pool {res['arch0_b8_pool_gib']:.4f} GiB; peak "
+                  f"{res['arch0_b8_peak_gib']:.4f} GiB allocated over what "
+                  f"was before the eager call, the warm-up and the capture")
+            x2 = torch.from_numpy(rng.integers(0, 256, shape,
+                                               dtype=np.uint8)).cuda()
+            held_output_check(torch, seg, x, x2)
+            cleared_caches_check(torch, seg, x, want)
+        if what != "arch0 odd frame":
+            g = cuda_ms(lambda: seg.predict_batch(x), 10)
+            e = cuda_ms(lambda: eager.predict_batch(x), 10)
+            res["graph_vs_eager_ms"][what] = (g, e)
+            print(f"[timing] {what} predict_batch: graph {g:.4f} ms, eager "
+                  f"{e:.4f} ms on {gpu}")
+        del seg, eager, x, want
+    res["roofline_b8_ms"] = roofline_beside_bounds(b)
+    rec = bench_in_process(torch, "arch0")
+    attainable_check(rec, "arch0 in process")
+    fresh = bench_fresh()
+    aot_hit_check(fresh, "arch0 in a fresh process")
+    attainable_check(fresh, "arch0 in a fresh process")
+    res["records"] = {"arch0": rec, "arch0 fresh": fresh}
+    frames = rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)
+    for arch in ("arch1", "arch2"):
+        res[f"{arch}_mask_agreement"] = arch_masks(torch, arch, frames)
+        r = bench_in_process(torch, arch)
+        attainable_check(r, arch)
+        res["records"][arch] = r
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[bench] phase: {res['phase_s']:.2f} s on {gpu}")
+    return res
+
+
+def bench_control(torch, bits: int) -> dict:
+    """The control's bench checks, each on a fault it must see: (a) each
+    path's graph captured under ``coarse_decoder(bits)`` against the eager
+    call without it; (b) the held output read from the program's static
+    output; (c) the program's held tensors let go; (d) the fresh process's
+    build directory without the front's library, and every rate held to
+    the roofline of a frame 16 times larger; (e) arch1's and arch2's
+    graphs under the rounding. Returns {check: failed}."""
+    res = {}
+    rng = np.random.default_rng(3)
+    for what, genotype, shape, seed in BENCH_PATHS:
+        frames = rng.integers(0, 256, shape, dtype=np.uint8)
+        model = bench_model(torch, genotype, seed)
+        res[f"bench (a) {what} graph vs eager"] = must_fail(
+            f"bench (a) {what}", lambda: graph_vs_eager(
+                torch, what, model, frames, coarse_decoder(torch, bits)))
+        if what == "arch0 b8":
+            seg, _, x, want = graph_vs_eager(torch, what, model, frames)
+            x2 = torch.from_numpy(rng.integers(0, 256, shape,
+                                               dtype=np.uint8)).cuda()
+            res["bench (b) held output"] = must_fail(
+                "bench (b) held output", lambda: held_output_check(
+                    torch, seg, x, x2, read_static=True))
+            res["bench (c) replay after cleared caches"] = must_fail(
+                "bench (c) cleared caches", lambda: cleared_caches_check(
+                    torch, seg, x, want, drop_held=True))
+            del seg, x, x2, want
+    rec = bench_in_process(torch, "arch0")
+    res["bench (d) arch0 in process attainable"] = must_fail(
+        "bench (d) attainable", lambda: attainable_check(
+            rec, "arch0 in process, control", ROOF_CONTROL_SCALE))
+    cold = cache_missing_one()
+    fresh = bench_fresh(cold)
+    res["bench (d) aot_hit in a fresh process"] = must_fail(
+        "bench (d) aot_hit", lambda: aot_hit_check(
+            fresh, "arch0 in a fresh process without the front's library"))
+    res["bench (d) fresh attainable"] = must_fail(
+        "bench (d) fresh attainable", lambda: attainable_check(
+            fresh, "arch0 fresh, control", ROOF_CONTROL_SCALE))
+    import shutil
+    shutil.rmtree(cold, ignore_errors=True)
+    frames = rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)
+    for arch in ("arch1", "arch2"):
+        res[f"bench (e) {arch} masks"] = must_fail(
+            f"bench (e) {arch} masks", lambda: arch_masks(
+                torch, arch, frames, coarse_decoder(torch, bits)))
+        r = bench_in_process(torch, arch)
+        res[f"bench (e) {arch} attainable"] = must_fail(
+            f"bench (e) {arch} attainable", lambda: attainable_check(
+                r, f"{arch}, control", ROOF_CONTROL_SCALE))
+    return res
+
+
 def main() -> None:
     try:
         from segtpu_torch.utils.helpers import CUBLAS_WORKSPACE
@@ -4897,6 +5302,9 @@ def main() -> None:
     # before cuBLAS first runs, as main_search.main sets it: the search
     # phases' deterministic algorithms need this workspace
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
+    # every phase's programs are eager (their launch counts and kernel
+    # times are the eager calls'), but phase bench's, which clears it
+    os.environ["SEGTPU_NO_AOT"] = "1"
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a card")
@@ -4981,6 +5389,7 @@ def main() -> None:
             **({"old_ms": r["old_ms"]} if "old_ms" in r else {}),
             **({"floor_ms": r["floor_ms"], "floor_by": r["floor_by"]}
                if "floor_ms" in r else {})})
+    bench = phase_bench(torch, b)
     train = phase_train(torch, frames)
     search = phase_search(torch)
     supernet = phase_supernet(torch)
@@ -5007,7 +5416,7 @@ def main() -> None:
                    "experiments": experiments, "train": train,
                    "search": search, "supernet": supernet,
                    "data_parallel": data_parallel, "fidelity": fidelity,
-                   "space": space},
+                   "space": space, "bench": bench},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -29,12 +29,21 @@ run as the hand-written kernels of ``segtpu_torch.kernels``;
 ``use_kernels=False`` swaps in their plain PyTorch versions (the
 reference run), and on the CPU the plain versions are what the wrappers
 run.
+
+``predict``, ``predict_batch`` and ``predict_stream`` run one program per
+(shape bucket, ``return_logits``, staged shape), as the JAX engine does
+(``Segmenter._compiled``): on a card a CUDA graph of the call
+(``utils.aot.aot_graph``), replayed, whose launches are those of the
+eager call in the same order; eager on the CPU and under
+``SEGTPU_NO_AOT=1``. ``infer``, which the sharded modes' replicas call
+from threads, runs eagerly.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Sequence, Tuple
+import functools
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +62,7 @@ from segtpu_torch.models.fast_decoder import (FoldedMicroDecoder,
                                               fold_decoder)
 from segtpu_torch.models.fast_encoder import fold_encoder, mbv2_chw_sharded
 from segtpu_torch.parallel.collectives import halo_exchange, per_device
+from segtpu_torch.utils.aot import aot_graph
 from segtpu_torch.utils.cache import enable_compilation_cache
 from segtpu_torch.utils.helpers import (IMG_MEAN, IMG_SCALE, IMG_STD,
                                         resolve_device)
@@ -78,14 +88,22 @@ def _stage_u8(img_u8) -> Tuple[np.ndarray, bool]:
     return img, False
 
 
+@functools.lru_cache(maxsize=None)
+def _norm_constants(dev: torch.device):
+    """(mean [3, 1, 1], std [3, 1, 1], scale []) in f32 on ``dev``, copied
+    there once: a call then makes no host-to-device copy (which a CUDA
+    graph's capture refuses). Made outside inference mode."""
+    with torch.inference_mode(False):
+        return (torch.from_numpy(IMG_MEAN).to(dev)[:, None, None],
+                torch.from_numpy(IMG_STD).to(dev)[:, None, None],
+                torch.tensor(IMG_SCALE, dtype=torch.float32, device=dev))
+
+
 def normalize_on_device(img_u8, compute_dtype):
     """uint8 [N, H, W, 3] -> normalized [N, 3, H, W] in compute_dtype,
     the arithmetic of ``prepare_img`` in f32."""
-    dev = img_u8.device
-    mean = torch.from_numpy(IMG_MEAN).to(dev)[:, None, None]
-    std = torch.from_numpy(IMG_STD).to(dev)[:, None, None]
-    x = img_u8.permute(0, 3, 1, 2).float() * torch.tensor(
-        IMG_SCALE, dtype=torch.float32, device=dev)
+    mean, std, scale = _norm_constants(img_u8.device)
+    x = img_u8.permute(0, 3, 1, 2).float() * scale
     return ((x - mean) / std).to(compute_dtype)
 
 
@@ -119,6 +137,7 @@ class Segmenter:
         self.decoder = fold_decoder(model.decoder,
                                     compute_dtype).to(self.device)
         self.num_classes = model.num_classes
+        self._cache: Dict[Tuple, object] = {}
 
     def replica(self, device) -> "Segmenter":
         """This engine with copies of its folded weights on ``device``
@@ -129,14 +148,38 @@ class Segmenter:
             return self
         rep = copy.copy(self)
         rep.device = device
+        rep._cache = {}
         rep.encoder = copy.deepcopy(self.encoder).to(device)
         rep.decoder = copy.deepcopy(self.decoder).to(device)
         return rep
 
     def infer(self, imgs):
         """uint8 [N, H, W, 3] tensor on the engine's device -> uint8
-        mask [N, H, W] on the device (asynchronous on CUDA)."""
+        mask [N, H, W] on the device (asynchronous on CUDA), eagerly."""
         return self._run(imgs, return_logits=False)
+
+    def _compiled(self, hw: Tuple[int, int], return_logits: bool,
+                  staged_shape: Tuple[int, ...]):
+        """The program of one (shape bucket, ``return_logits``, staged
+        shape) on the engine's device (``utils.aot.aot_graph``), made on
+        the first call that needs it. A graph reads the weights it was
+        captured with, so its key names this engine."""
+        key = (hw, return_logits, tuple(staged_shape), str(self.device))
+        if key not in self._cache:
+            example = torch.zeros(staged_shape, dtype=torch.uint8,
+                                  device=self.device)
+            self._cache[key] = aot_graph(
+                functools.partial(self._run, return_logits=return_logits),
+                ("Segmenter", id(self), *key), example)
+        return self._cache[key]
+
+    def _call(self, imgs, return_logits: bool):
+        """uint8 [N, H, W, 3] on the engine's device through its program."""
+        if imgs.dtype != torch.uint8 or imgs.ndim != 4:
+            raise ValueError(f"expected uint8 [N, H, W, 3], got "
+                             f"{imgs.dtype} {tuple(imgs.shape)}")
+        return self._compiled(tuple(imgs.shape[1:3]), return_logits,
+                              tuple(imgs.shape))(imgs)
 
     @torch.inference_mode()
     def _run(self, imgs, *, return_logits: bool):
@@ -178,11 +221,11 @@ class Segmenter:
         if isinstance(img_u8, torch.Tensor):
             squeeze = img_u8.ndim == 3
             imgs = img_u8[None] if squeeze else img_u8
-            out = self._run(imgs.to(self.device), return_logits=return_logits)
+            out = self._call(imgs.to(self.device), return_logits)
             return out[0] if squeeze else out
         imgs, squeeze = _stage_u8(img_u8)
-        out = self._run(torch.from_numpy(imgs).to(self.device),
-                        return_logits=return_logits).cpu().numpy()
+        out = self._call(torch.from_numpy(imgs).to(self.device),
+                         return_logits).cpu().numpy()
         return out[0] if squeeze else out
 
     predict_batch = predict
@@ -227,7 +270,7 @@ class Segmenter:
                 compute = torch.cuda.current_stream(self.device)
                 compute.wait_event(ready)
                 cur.record_stream(compute)
-            out = self.infer(cur)
+            out = self._call(cur, False)
             if pending is not None:
                 yield finish(*pending)
             pending = (out, squeeze)

@@ -10,6 +10,11 @@ named by a hash of their source, so an edited source is rebuilt and an
 unchanged one is reused. ``build()`` starts one ``nvcc``
 per missing library, all at once, and waits for them together.
 
+``BUILDS`` records, for this process, each ``build()`` call that ran
+``nvcc``: the sources it compiled and its wall seconds. It stays empty
+in a process that found every library it loaded already built (a warm
+start).
+
 There is no fallback: a missing ``nvcc`` or a failed compile raises.
 Nothing here runs at import time.
 """
@@ -22,8 +27,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
@@ -38,6 +44,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+BUILDS: List[Tuple[Tuple[str, ...], float]] = []   # (sources, seconds)
 
 
 def nvcc_path() -> str:
@@ -68,6 +75,7 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Path]:
     Returns {name: library path}. The compiler's report (registers,
     spills) is kept beside each library as ``<library>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     paths = {n: library_path(n) for n in names}
     nvcc = nvcc_path() if any(not p.exists() for p in paths.values()) else None
     jobs = []
@@ -92,7 +100,26 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Path]:
                           + Path(f"{lib}.log").read_text()[-4000:])
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    if jobs:
+        BUILDS.append((tuple(name for name, *_ in jobs),
+                       time.perf_counter() - t0))
     return paths
+
+
+def built() -> set:
+    """The sources ``nvcc`` compiled in this process."""
+    return {name for names, _ in BUILDS for name in names}
+
+
+def build_seconds() -> float:
+    """Wall seconds this process spent in ``build()`` calls that compiled
+    something."""
+    return sum(seconds for _, seconds in BUILDS)
+
+
+def loaded() -> tuple:
+    """The sources whose libraries this process has loaded."""
+    return tuple(_LOADED)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -5,12 +5,14 @@ Subcommands: ``search`` (the NAS loop: per genotype, or with
 or with ``--fleet`` one genotype a device), ``train`` (a fixed
 architecture), ``eval`` (mIoU over a manifest), ``infer`` (one image
 through the served engine and its kernels), ``fidelity`` (the f32
-engine's full-resolution logits against golden ``.npz`` files). Flags
+engine's full-resolution logits against golden ``.npz`` files),
+``bench`` (``segtpu_torch.bench``: the served call's images/s, with
+``BENCH_ARCH`` defaulting to ``--arch``). Flags
 are the JAX package's and map onto ``config.SearchConfig`` and
 ``train.TrainConfig``; every subcommand also takes ``--device`` (default
 ``cuda``, which raises where there is no card). ``main`` first points
 the kernel build at its directory (``utils.cache``: ``SEGTPU_CACHE_DIR``,
-``SEGTPU_NO_CACHE``). The JAX package's ``bench`` is not ported.
+``SEGTPU_NO_CACHE``).
 
 Usage:
     python -m segtpu_torch.main_search search --synthetic --num-iters 5
@@ -18,6 +20,7 @@ Usage:
     python -m segtpu_torch.main_search infer --arch arch0 --image img.npy
     python -m segtpu_torch.main_search fidelity --ckpt arch0.ckpt \
         --golden g0.npz --max-dlogit 1e-3
+    python -m segtpu_torch.main_search bench --arch arch1
 """
 
 from __future__ import annotations
@@ -255,6 +258,13 @@ def cmd_fidelity(args):
         raise SystemExit(1)
 
 
+def cmd_bench(args):
+    from segtpu_torch import bench
+    # BENCH_ARCH, where set, wins over --arch, as in the JAX package
+    bench.main(["--device", args.device,
+                "--arch", os.environ.get("BENCH_ARCH", args.arch)])
+
+
 def main(argv=None):
     # before cuBLAS first runs: the search's deterministic algorithms
     # need this workspace (utils.helpers.deterministic)
@@ -312,6 +322,11 @@ def main(argv=None):
     pe.add_argument("--ckpt", default="")
     _add_device_flag(pe)
     pe.set_defaults(fn=cmd_eval)
+
+    pb = sub.add_parser("bench", help="headline throughput benchmark")
+    pb.add_argument("--arch", default="arch0")
+    _add_device_flag(pb)
+    pb.set_defaults(fn=cmd_bench)
 
     pf = sub.add_parser("fidelity",
                         help="per-pixel logit check vs golden .npz files")

@@ -422,6 +422,7 @@ def test_search_resumes_across_packages(tmp_path):
     (["train", "--synthetic", "--num-epochs", "1"], "cmd_train"),
     (["eval", "--data-root", "d", "--val-list", "v.lst"], "cmd_eval"),
     (["infer", "--image", "x.png", "--arch", "arch1"], "cmd_infer"),
+    (["bench", "--arch", "arch2"], "cmd_bench"),
 ])
 def test_subcommands_parse(argv, fn_name, monkeypatch):
     captured = {}
@@ -435,10 +436,9 @@ def test_subcommands_parse(argv, fn_name, monkeypatch):
     assert captured["args"].device == "cuda"
 
 
-@pytest.mark.parametrize("argv", [["bench", "--arch", "arch2"],
-                                  # fidelity without its required --golden
-                                  ["fidelity", "--arch", "arch0"],
-                                  ["explode"]])
+@pytest.mark.parametrize("argv", [
+    ["fidelity", "--arch", "arch0"],       # without its required --golden
+    ["explode"]])
 def test_unported_and_bad_subcommands_rejected(argv):
     with pytest.raises(SystemExit):
         tmain.main(argv)
