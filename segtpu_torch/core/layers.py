@@ -29,6 +29,7 @@ import torch
 import torch.nn as nn
 
 from segtpu_torch.core import bands
+from segtpu_torch.utils.profiling import span
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -101,18 +102,20 @@ def bn_train(y, scale, bias, mean, var):
     ``F.batch_norm``, whose sum order and variance form differ from the
     JAX package's ``bn_apply``. Inside ``shard_context`` the moments and
     n are the whole sharded batch's, and the buffers move once, in rank
-    0's thread."""
-    yf = y.float()
-    batch_mean, batch_var, n = _batch_moments(yf)
-    member = bands.mesh_member()
-    if member is None or member[1] == 0:
-        with torch.no_grad():
-            unbiased = batch_var * (n / max(n - 1, 1))
-            mean.copy_((1 - BN_MOMENTUM) * mean + BN_MOMENTUM * batch_mean)
-            var.copy_((1 - BN_MOMENTUM) * var + BN_MOMENTUM * unbiased)
-    inv = torch.rsqrt(batch_var + BN_EPS) * scale
-    shift = bias - batch_mean * inv
-    return (yf * inv[:, None, None] + shift[:, None, None]).to(y.dtype)
+    0's thread. Traced as a ``segtpu.train.bn`` span (its forward)."""
+    with span("segtpu.train.bn", device=y.device):
+        yf = y.float()
+        batch_mean, batch_var, n = _batch_moments(yf)
+        member = bands.mesh_member()
+        if member is None or member[1] == 0:
+            with torch.no_grad():
+                unbiased = batch_var * (n / max(n - 1, 1))
+                mean.copy_((1 - BN_MOMENTUM) * mean
+                           + BN_MOMENTUM * batch_mean)
+                var.copy_((1 - BN_MOMENTUM) * var + BN_MOMENTUM * unbiased)
+        inv = torch.rsqrt(batch_var + BN_EPS) * scale
+        shift = bias - batch_mean * inv
+        return (yf * inv[:, None, None] + shift[:, None, None]).to(y.dtype)
 
 
 class Conv(nn.Module):

@@ -37,6 +37,19 @@ run.
 eager call in the same order; eager on the CPU and under
 ``SEGTPU_NO_AOT=1``. ``infer``, which the sharded modes' replicas call
 from threads, runs eagerly.
+
+Under ``utils.profiling.tracing()`` a call records its spans: the root
+``segtpu.engine.predict`` with the call's request id; ``.stage`` and
+``.fetch`` (host to card and back) where ``predict`` gets numpy;
+``.replay`` (the static-input copy, the graph's replay and the output's
+clone, or the eager call); and inside the program the four layers
+``.front``, ``.encoder``, ``.decoder`` and ``.tail``, whose device
+spans a graph holds as event nodes (a traced program is captured apart
+from the untraced one). ``predict_stream`` records ``.stream.stage``
+and ``.stream.fetch``. Always on, a ``Segmenter`` counts its
+``replays``, ``eager_calls``, ``captures`` and ``launches``: the
+port's kernels the card ran for its calls (a replay adds the launches
+its graph holds, a capture's own launches count only as the graph's).
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from segtpu_torch.core.resize import resize_bilinear
+from segtpu_torch.kernels._build import launch_count
 from segtpu_torch.kernels.front import normalize_s2d_front
 from segtpu_torch.kernels.upsample_argmax import (flat_tail_profitable,
                                                   upsample_argmax,
@@ -66,6 +80,8 @@ from segtpu_torch.utils.aot import aot_graph
 from segtpu_torch.utils.cache import enable_compilation_cache
 from segtpu_torch.utils.helpers import (IMG_MEAN, IMG_SCALE, IMG_STD,
                                         resolve_device)
+from segtpu_torch.utils.profiling import enabled as tracing_enabled
+from segtpu_torch.utils.profiling import span
 
 STRIDE = 32  # encoder output stride — pad-to-stride rule
 
@@ -138,6 +154,7 @@ class Segmenter:
                                     compute_dtype).to(self.device)
         self.num_classes = model.num_classes
         self._cache: Dict[Tuple, object] = {}
+        self.replays = self.eager_calls = self.captures = self.launches = 0
 
     def replica(self, device) -> "Segmenter":
         """This engine with copies of its folded weights on ``device``
@@ -156,60 +173,89 @@ class Segmenter:
     def infer(self, imgs):
         """uint8 [N, H, W, 3] tensor on the engine's device -> uint8
         mask [N, H, W] on the device (asynchronous on CUDA), eagerly."""
-        return self._run(imgs, return_logits=False)
+        n0 = launch_count()
+        out = self._run(imgs, return_logits=False)
+        self.eager_calls += 1
+        self.launches += launch_count() - n0
+        return out
 
     def _compiled(self, hw: Tuple[int, int], return_logits: bool,
                   staged_shape: Tuple[int, ...]):
         """The program of one (shape bucket, ``return_logits``, staged
         shape) on the engine's device (``utils.aot.aot_graph``), made on
         the first call that needs it. A graph reads the weights it was
-        captured with, so its key names this engine."""
+        captured with, so its key names this engine; with tracing on it
+        holds its spans' event nodes, so its key says "traced"."""
         key = (hw, return_logits, tuple(staged_shape), str(self.device))
+        if tracing_enabled():
+            key += ("traced",)
         if key not in self._cache:
             example = torch.zeros(staged_shape, dtype=torch.uint8,
                                   device=self.device)
-            self._cache[key] = aot_graph(
+            self._cache[key] = prog = aot_graph(
                 functools.partial(self._run, return_logits=return_logits),
                 ("Segmenter", id(self), *key), example)
+            self.captures += prog.graph is not None
         return self._cache[key]
 
-    def _call(self, imgs, return_logits: bool):
+    def _call(self, imgs, return_logits: bool, request=None):
         """uint8 [N, H, W, 3] on the engine's device through its program."""
         if imgs.dtype != torch.uint8 or imgs.ndim != 4:
             raise ValueError(f"expected uint8 [N, H, W, 3], got "
                              f"{imgs.dtype} {tuple(imgs.shape)}")
-        return self._compiled(tuple(imgs.shape[1:3]), return_logits,
-                              tuple(imgs.shape))(imgs)
+        with span("segtpu.engine.replay", request):
+            n0, c0 = launch_count(), self.captures
+            prog = self._compiled(tuple(imgs.shape[1:3]), return_logits,
+                                  tuple(imgs.shape))
+            out = prog(imgs)
+            issued = launch_count() - n0
+            if prog.graph is None:
+                self.eager_calls += 1
+                self.launches += issued
+            else:
+                # a capture's launches only went into the graph; its
+                # warm-up's ran, as do the replay's
+                self.replays += 1
+                captured = prog.launches if self.captures > c0 else 0
+                self.launches += issued - captured + prog.launches
+        return out
 
     @torch.inference_mode()
     def _run(self, imgs, *, return_logits: bool):
         n, h, w, _ = imgs.shape
         hp, wp = pad_to_stride((h, w))
-        if h % 2 == 0 and w % 2 == 0:
-            x12 = normalize_s2d_front(imgs, padded_hw=(hp, wp),
-                                      out_dtype=self.compute_dtype,
-                                      use_kernels=self.use_kernels)
-        else:
-            x = normalize_on_device(imgs, self.compute_dtype)
-            x = F.pad(x, (0, wp - w, 0, hp - h))
-            x12 = x.reshape(n, 3, hp // 2, 2, wp // 2, 2).permute(
-                0, 3, 5, 1, 2, 4).reshape(n, 12, hp // 2, wp // 2)
-        taps = self.encoder(x12.contiguous(), use_kernels=self.use_kernels)
-        logits = self.decoder(taps, align_corners=self.align_corners,
-                              use_kernels=self.use_kernels)
-        if return_logits:
-            up = resize_bilinear(logits.float(), (hp, wp),
-                                 align_corners=self.align_corners)
-            return up[:, :, :h, :w]
-        if flat_tail_profitable(logits.shape[-1]):
-            lh, lw = logits.shape[-2:]
-            return upsample_argmax_flat(
-                logits.reshape(n, logits.shape[1], lh * lw), (lh, lw),
-                (hp, wp), crop_hw=(h, w), align_corners=self.align_corners,
-                use_kernels=self.use_kernels)
-        return upsample_argmax(logits, (hp, wp), crop_hw=(h, w),
-                               align_corners=self.align_corners,
-                               use_kernels=self.use_kernels)
+        dev = imgs.device
+        with span("segtpu.engine.front", device=dev):
+            if h % 2 == 0 and w % 2 == 0:
+                x12 = normalize_s2d_front(imgs, padded_hw=(hp, wp),
+                                          out_dtype=self.compute_dtype,
+                                          use_kernels=self.use_kernels)
+            else:
+                x = normalize_on_device(imgs, self.compute_dtype)
+                x = F.pad(x, (0, wp - w, 0, hp - h))
+                x12 = x.reshape(n, 3, hp // 2, 2, wp // 2, 2).permute(
+                    0, 3, 5, 1, 2, 4).reshape(n, 12, hp // 2, wp // 2)
+        with span("segtpu.engine.encoder", device=dev):
+            taps = self.encoder(x12.contiguous(),
+                                use_kernels=self.use_kernels)
+        with span("segtpu.engine.decoder", device=dev):
+            logits = self.decoder(taps, align_corners=self.align_corners,
+                                  use_kernels=self.use_kernels)
+        with span("segtpu.engine.tail", device=dev):
+            if return_logits:
+                up = resize_bilinear(logits.float(), (hp, wp),
+                                     align_corners=self.align_corners)
+                return up[:, :, :h, :w]
+            if flat_tail_profitable(logits.shape[-1]):
+                lh, lw = logits.shape[-2:]
+                return upsample_argmax_flat(
+                    logits.reshape(n, logits.shape[1], lh * lw), (lh, lw),
+                    (hp, wp), crop_hw=(h, w),
+                    align_corners=self.align_corners,
+                    use_kernels=self.use_kernels)
+            return upsample_argmax(logits, (hp, wp), crop_hw=(h, w),
+                                   align_corners=self.align_corners,
+                                   use_kernels=self.use_kernels)
 
     def predict(self, img_u8, *, return_logits: bool = False):
         """Single image [H, W, 3] or batch [N, H, W, 3] of uint8.
@@ -218,15 +264,19 @@ class Segmenter:
         tensor in gives a tensor on the engine's device out, without
         waiting. ``return_logits`` gives f32 full-resolution logits
         [(N,) K, H, W] (bilinear, cropped) instead of the mask."""
-        if isinstance(img_u8, torch.Tensor):
-            squeeze = img_u8.ndim == 3
-            imgs = img_u8[None] if squeeze else img_u8
-            out = self._call(imgs.to(self.device), return_logits)
+        with span("segtpu.engine.predict"):
+            if isinstance(img_u8, torch.Tensor):
+                squeeze = img_u8.ndim == 3
+                imgs = img_u8[None] if squeeze else img_u8
+                out = self._call(imgs.to(self.device), return_logits)
+                return out[0] if squeeze else out
+            imgs, squeeze = _stage_u8(img_u8)
+            with span("segtpu.engine.stage"):
+                imgs = torch.from_numpy(imgs).to(self.device)
+            out = self._call(imgs, return_logits)
+            with span("segtpu.engine.fetch"):
+                out = out.cpu().numpy()
             return out[0] if squeeze else out
-        imgs, squeeze = _stage_u8(img_u8)
-        out = self._call(torch.from_numpy(imgs).to(self.device),
-                         return_logits).cpu().numpy()
-        return out[0] if squeeze else out
 
     predict_batch = predict
 
@@ -238,20 +288,25 @@ class Segmenter:
         copy_stream = torch.cuda.Stream(self.device) if cuda else None
 
         def stage(im):
-            imgs, squeeze = _stage_u8(im)
-            host = torch.from_numpy(imgs)
-            if not cuda:
-                return host, None, squeeze, None
-            host = host.pin_memory()
-            with torch.cuda.stream(copy_stream):
-                dev = host.to(self.device, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(copy_stream)
-            # the pinned buffer must outlive its asynchronous copy
-            return dev, ready, squeeze, host
+            """(frame on the device, its copy's event, squeeze, the pinned
+            buffer, the frame's request id while tracing)."""
+            with span("segtpu.engine.stream.stage") as s:
+                req = None if s is None else s.request
+                imgs, squeeze = _stage_u8(im)
+                host = torch.from_numpy(imgs)
+                if not cuda:
+                    return host, None, squeeze, None, req
+                host = host.pin_memory()
+                with torch.cuda.stream(copy_stream):
+                    dev = host.to(self.device, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(copy_stream)
+                # the pinned buffer must outlive its asynchronous copy
+                return dev, ready, squeeze, host, req
 
-        def finish(out, squeeze):
-            out = out.cpu().numpy()
+        def finish(out, squeeze, req):
+            with span("segtpu.engine.stream.fetch", req):
+                out = out.cpu().numpy()
             return out[0] if squeeze else out
 
         it = iter(images)
@@ -261,7 +316,7 @@ class Segmenter:
             return
         pending = None
         while nxt is not None:
-            cur, ready, squeeze, _host = nxt
+            cur, ready, squeeze, _host, req = nxt
             try:
                 nxt = stage(next(it))
             except StopIteration:
@@ -270,10 +325,10 @@ class Segmenter:
                 compute = torch.cuda.current_stream(self.device)
                 compute.wait_event(ready)
                 cur.record_stream(compute)
-            out = self._call(cur, False)
+            out = self._call(cur, False, req)
             if pending is not None:
                 yield finish(*pending)
-            pending = (out, squeeze)
+            pending = (out, squeeze, req)
         yield finish(*pending)
 
 
@@ -351,18 +406,24 @@ class ShardedSegmenter:
         _, h, w, _ = imgs.shape
         self.check_shape(h, w)
         hl = h // n
-        x12s = [normalize_s2d_front(
-            imgs[:, s * hl:(s + 1) * hl].to(dev).contiguous(),
-            out_dtype=seg.compute_dtype, use_kernels=seg.use_kernels)
-            for s, dev in enumerate(self.devices)]
-        taps = mbv2_chw_sharded(self.encoders, x12s, seg.use_kernels)
+        # host spans only: a layer's shards run on several devices' streams
+        with span("segtpu.engine.front"):
+            x12s = [normalize_s2d_front(
+                imgs[:, s * hl:(s + 1) * hl].to(dev).contiguous(),
+                out_dtype=seg.compute_dtype, use_kernels=seg.use_kernels)
+                for s, dev in enumerate(self.devices)]
+        with span("segtpu.engine.encoder"):
+            taps = mbv2_chw_sharded(self.encoders, x12s, seg.use_kernels)
         if return_taps:
             return taps
-        logits = halo_exchange(self.decoder(taps), 1, 1)
-        return [upsample_argmax_sharded(
-            x, (h, w), shard=s, n_shards=n,
-            align_corners=seg.align_corners, use_kernels=seg.use_kernels)
-            for s, x in enumerate(logits)]
+        with span("segtpu.engine.decoder"):
+            logits = halo_exchange(self.decoder(taps), 1, 1)
+        with span("segtpu.engine.tail"):
+            return [upsample_argmax_sharded(
+                x, (h, w), shard=s, n_shards=n,
+                align_corners=seg.align_corners,
+                use_kernels=seg.use_kernels)
+                for s, x in enumerate(logits)]
 
     def infer(self, imgs):
         """uint8 [N, H, W, 3] tensor -> uint8 mask [N, H, W] on the first
@@ -373,13 +434,17 @@ class ShardedSegmenter:
     def predict(self, img_u8):
         """A batch [N, H, W, 3] (or one frame [H, W, 3]) of uint8: numpy
         in gives numpy out, a tensor in gives a tensor on the first
-        shard's device."""
-        if isinstance(img_u8, torch.Tensor):
-            squeeze = img_u8.ndim == 3
-            out = self.infer(img_u8[None] if squeeze else img_u8)
+        shard's device. Traced as ``Segmenter.predict`` is, with host
+        spans of the four layers."""
+        with span("segtpu.engine.predict"):
+            if isinstance(img_u8, torch.Tensor):
+                squeeze = img_u8.ndim == 3
+                out = self.infer(img_u8[None] if squeeze else img_u8)
+                return out[0] if squeeze else out
+            imgs, squeeze = _stage_u8(img_u8)
+            out = self.infer(torch.from_numpy(imgs))
+            with span("segtpu.engine.fetch"):
+                out = out.cpu().numpy()
             return out[0] if squeeze else out
-        imgs, squeeze = _stage_u8(img_u8)
-        out = self.infer(torch.from_numpy(imgs)).cpu().numpy()
-        return out[0] if squeeze else out
 
     predict_batch = predict

@@ -17,6 +17,13 @@ the model's device once, as NCHW. ``teacher`` (KD targets) and the
 cached ``taps`` are the port's NCHW tensors. Convolutions forward and
 backward are library calls (cuDNN on the card), as the JAX package's
 are XLA's: no Pallas kernel is on its train or eval path.
+
+Under ``utils.profiling.tracing()`` a ``make_train_step`` step records
+host and device spans: the root ``segtpu.train.step`` with the state's
+step as its request id, ``.forward`` (the model with its aux heads, one
+``.bn`` child a train BatchNorm), ``.loss``, ``.backward`` (the
+gradients), ``.optimizer`` and ``.polyak``; its ``parts`` record the
+same below whatever calls them (``parallel.mesh``'s sharded step).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch.nn as nn
 from segtpu_torch.core.bands import global_hw
 from segtpu_torch.core.resize import resize_bilinear
 from segtpu_torch.utils.metrics import confusion_matrix, mean_iou
+from segtpu_torch.utils.profiling import span
 from segtpu_torch.utils.solvers import polyak_update
 
 
@@ -184,7 +192,8 @@ def _apply_update(state: TrainState, optimizer, loss,
     reach, which the optimizer steps on zeros), the optimizer's step, the
     Polyak average, step + 1."""
     names, params = zip(*state.model.named_parameters())
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    with span("segtpu.train.backward", device=loss.device):
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
     params = dict(zip(names, params))
     state.grad_norms = optimizer.update(dict(zip(names, grads)),
                                         state.opt_state, params)
@@ -223,16 +232,19 @@ def make_train_step(genotype, optimizer, *, num_classes: int,
 
     def forward(model, batch, dev):
         """(logits, aux logits, labels, teacher logits or None)."""
-        logits, aux = model(images_to(batch["image"], dev), with_aux=True,
-                            freeze_encoder=freeze_encoder)
-        teacher = batch.get("teacher")
-        return (logits, aux, _labels_to(batch["label"], dev),
-                None if teacher is None else torch.as_tensor(teacher).to(dev))
+        with span("segtpu.train.forward", device=dev):
+            logits, aux = model(images_to(batch["image"], dev),
+                                with_aux=True, freeze_encoder=freeze_encoder)
+            teacher = batch.get("teacher")
+            return (logits, aux, _labels_to(batch["label"], dev),
+                    None if teacher is None
+                    else torch.as_tensor(teacher).to(dev))
 
     def terms(model, batch, dev):
         logits, aux, label, teacher = forward(model, batch, dev)
-        return segmentation_loss_terms(logits, aux, label,
-                                       teacher_logits=teacher, **loss_kw)
+        with span("segtpu.train.loss", device=dev):
+            return segmentation_loss_terms(logits, aux, label,
+                                           teacher_logits=teacher, **loss_kw)
 
     def update(state, loss):
         return _apply_update(state, optimizer, loss, polyak_decay)
@@ -241,11 +253,13 @@ def make_train_step(genotype, optimizer, *, num_classes: int,
         model = state.model
         _check_genotype(model, genotype)
         dev = _device(model)
-        model.train()
-        logits, aux, label, teacher = forward(model, batch, dev)
-        loss = segmentation_loss(logits, aux, label, teacher_logits=teacher,
-                                 **loss_kw)
-        return update(state, loss), loss.detach()
+        with span("segtpu.train.step", state.step, dev):
+            model.train()
+            logits, aux, label, teacher = forward(model, batch, dev)
+            with span("segtpu.train.loss", device=dev):
+                loss = segmentation_loss(logits, aux, label,
+                                         teacher_logits=teacher, **loss_kw)
+            return update(state, loss), loss.detach()
 
     step.parts = StepParts(genotype, terms, update)
     return step

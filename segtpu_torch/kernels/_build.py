@@ -10,6 +10,10 @@ named by a hash of their source, so an edited source is rebuilt and an
 unchanged one is reused. ``build()`` starts one ``nvcc``
 per missing library, all at once, and waits for them together.
 
+``launch_count()`` is the number of kernel launches this thread has
+issued through the libraries' C entries (each entry launches one
+kernel); ``count_launch()`` is called after each.
+
 ``BUILDS`` records, for this process, each ``build()`` call that ran
 ``nvcc``: the sources it compiled and its wall seconds. It stays empty
 in a process that found every library it loaded already built (a warm
@@ -27,6 +31,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
@@ -45,6 +50,17 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 BUILDS: List[Tuple[Tuple[str, ...], float]] = []   # (sources, seconds)
+_THREAD = threading.local()
+
+
+def count_launch() -> None:
+    """One more kernel launched by this thread."""
+    _THREAD.launches = getattr(_THREAD, "launches", 0) + 1
+
+
+def launch_count() -> int:
+    """Kernel launches this thread has issued through the C entries."""
+    return getattr(_THREAD, "launches", 0)
 
 
 def nvcc_path() -> str:

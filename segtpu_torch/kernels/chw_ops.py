@@ -79,6 +79,7 @@ import torch
 import torch.nn.functional as F
 
 from segtpu_torch.core.layers import ACTIVATIONS, BN_EPS, relu6
+from segtpu_torch.kernels._build import count_launch
 
 _ACT_CODE = {"none": 0, "relu": 1, "relu6": 2}
 _SMEM_LIMIT = 227 * 1024      # opt-in shared memory per block on the H100
@@ -120,9 +121,12 @@ def _launch(fn, t, *args) -> int:
     """Call the C entry ``fn(*args, stream)`` with ``t``'s device current
     and on that device's current stream: the entry launches on the
     current device, so a tensor of another card than the thread's
-    current one needs the switch around the launch itself."""
+    current one needs the switch around the launch itself. Counted in
+    ``_build.launch_count()``."""
     with torch.cuda.device(t.device):
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    count_launch()
+    return rc
 
 
 @functools.lru_cache(maxsize=None)

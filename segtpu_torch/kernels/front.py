@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from segtpu_torch.kernels._build import count_launch
 from segtpu_torch.utils.helpers import IMG_MEAN, IMG_SCALE, IMG_STD
 
 
@@ -118,6 +119,7 @@ def normalize_s2d_front(img_u8, *, padded_hw=None, out_dtype=torch.bfloat16,
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(img_u8.data_ptr(), out.data_ptr(), n, h2, w2, hp2, wp2,
                 int(out_dtype == torch.bfloat16), ctypes.byref(consts), stream)
+    count_launch()
     if rc != 0:
         raise RuntimeError(f"front kernel launch failed: CUDA error {rc}")
     normalize_s2d_front.launches += 1

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from segtpu_torch.core.resize import _interp_matrix
+from segtpu_torch.kernels._build import count_launch
 from segtpu_torch.kernels.chw_ops import _plan_ints
 
 
@@ -308,6 +309,7 @@ def _run(entry, what, logits, ho, wo, tables, plan, store):
                      int(logits.dtype == torch.bfloat16),
                      *(t.data_ptr() for t in tables), ctypes.addressof(ints),
                      stream)
+    count_launch()
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     return out

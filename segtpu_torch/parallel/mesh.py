@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from segtpu_torch.core.bands import ShardGroup, band, shard_context
+from segtpu_torch.utils.profiling import span
 
 
 class DeviceMesh:
@@ -317,7 +318,11 @@ def make_sharded_train_step(step_fn, mesh: DeviceMesh):
     batch's gradients on the state's weights, the optimizer's clip reads
     their norm, and the update and Polyak run once. Nothing waits inside
     the backward, so logical shards on one card (``[cuda:0] * n``) do not
-    deadlock in autograd's one worker thread for that card."""
+    deadlock in autograd's one worker thread for that card. Traced (see
+    ``engine.trainer``) as a ``segtpu.train.step`` root, a
+    ``segtpu.train.shard`` root in each shard's thread with the same
+    request id, the parts' spans below them and the loss's combination
+    as ``segtpu.train.loss``."""
     from segtpu_torch.engine.trainer import (_check_genotype,
                                              combine_loss_terms)
     parts = getattr(step_fn, "parts", None)
@@ -334,6 +339,10 @@ def make_sharded_train_step(step_fn, mesh: DeviceMesh):
         return skeletons[1]
 
     def step(state, batch):
+        with span("segtpu.train.step", state.step, devices[0]):
+            return sharded(state, batch)
+
+    def sharded(state, batch):
         model = state.model
         _check_genotype(model, parts.genotype)
         shards = shard_batch(mesh, batch)
@@ -346,24 +355,26 @@ def make_sharded_train_step(step_fn, mesh: DeviceMesh):
         skels = skeleton(model)
 
         def run(r, dev, shard):
-            tensors = {k: p.to(dev) for k, p in params.items()}
-            tensors.update(buffers0 if r == 0 else
-                           {k: b.to(dev) for k, b in buffers.items()})
-            skel = skels[r]
-            skel.train()
+            with span("segtpu.train.shard", state.step, dev):
+                tensors = {k: p.to(dev) for k, p in params.items()}
+                tensors.update(buffers0 if r == 0 else
+                               {k: b.to(dev) for k, b in buffers.items()})
+                skel = skels[r]
+                skel.train()
 
-            def forward(*args, **kwargs):
-                return torch.func.functional_call(skel, tensors, args,
-                                                  kwargs)
+                def forward(*args, **kwargs):
+                    return torch.func.functional_call(skel, tensors, args,
+                                                      kwargs)
 
-            return parts.terms(forward, shard, dev)
+                return parts.terms(forward, shard, dev)
 
         terms = _run_shards(workers, mesh, run, shards)
         with torch.no_grad():
             for k, b in buffers.items():
                 if buffers0[k] is not b:
                     b.copy_(buffers0[k])
-        loss = combine_loss_terms(terms, devices[0])
+        with span("segtpu.train.loss", device=devices[0]):
+            loss = combine_loss_terms(terms, devices[0])
         return parts.update(state, loss), loss.detach()
 
     workers = _shard_workers(mesh, step)

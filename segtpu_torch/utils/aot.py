@@ -31,7 +31,17 @@ caches, the static inputs) is held by the program, whose replays then
 never read memory the caching allocator has handed to another tensor.
 Tensors made during the capture live in the graph's private pool.
 
-A program carries ``aot_hit`` (no library it loaded was compiled by
+Under ``utils.profiling.tracing()`` a program is made apart from the
+untraced one (the tracing state is part of its key): the device spans
+its capture opened are the graph's event-record nodes, kept as
+``spans``, and each replay records them anew under the caller's open
+span. A replay first waits for the previous replay's spans to be read,
+since it re-records their events; untraced, a program holds no event
+node and waits for nothing.
+
+A program carries ``launches`` (the kernel launches its graph holds,
+``kernels._build.launch_count()`` over the capture; 0 when eager),
+``aot_hit`` (no library it loaded was compiled by
 this process: a warm start; False under ``SEGTPU_NO_AOT=1``, as in the
 JAX package), ``build_s`` (the ``nvcc`` seconds spent while making it)
 and ``capture_s`` (the warm-up and the capture, less ``build_s``).
@@ -52,6 +62,7 @@ from torch.overrides import TorchFunctionMode
 from torch.utils._pytree import tree_flatten
 
 from segtpu_torch.kernels import _build
+from segtpu_torch.utils import profiling
 
 _PROGRAMS: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
 
@@ -97,11 +108,12 @@ class _HoldLaunchInputs(TorchFunctionMode):
 class _Program:
     """A callable of one shape: the eager ``fn``, or a CUDA graph of it on
     static buffers (``graph``, ``static_in``, ``static_out``) with the
-    tensors its launches read (``held``)."""
+    tensors its launches read (``held``), the kernel launches it holds
+    (``launches``) and the spans its capture kept (``spans``)."""
 
     def __init__(self, fn, *, graph=None, static_in=(), static_out=None,
                  held=(), aot_hit: bool, build_s: float = 0.0,
-                 capture_s: float = 0.0):
+                 capture_s: float = 0.0, launches: int = 0, spans=()):
         self._fn = fn
         self.graph = graph
         self.static_in = static_in
@@ -110,13 +122,19 @@ class _Program:
         self.aot_hit = aot_hit
         self.build_s = build_s
         self.capture_s = capture_s
+        self.launches = launches
+        self.spans = spans
+        self._unread = None    # the last replay's spans
 
     def __call__(self, *args):
         if self.graph is None:
             return self._fn(*args)
+        if self._unread:
+            profiling.resolve(self._unread)
         for dst, src in zip(self.static_in, args):
             dst.copy_(src)
         self.graph.replay()
+        self._unread = profiling.replayed(self.spans)
         return self.static_out.clone()
 
 
@@ -135,9 +153,10 @@ def _capture(fn, example_args, key) -> _Program:
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
+        n0 = _build.launch_count()
         try:
             with torch.cuda.graph(graph):
-                with hold:
+                with hold, profiling.captured_spans() as spans:
                     static_out = fn(*static_in)
         except Exception as e:
             raise RuntimeError(f"aot_graph: capturing {key!r} on {dev} "
@@ -148,7 +167,8 @@ def _capture(fn, example_args, key) -> _Program:
     build_s = _build.build_seconds() - b0
     return _Program(fn, graph=graph, static_in=static_in,
                     static_out=static_out, held=tuple(hold.held.values()),
-                    aot_hit=_warm(),
+                    aot_hit=_warm(), launches=_build.launch_count() - n0,
+                    spans=tuple(spans),
                     build_s=build_s,
                     capture_s=time.perf_counter() - t0 - build_s)
 
@@ -157,11 +177,14 @@ def aot_graph(fn, key, *example_args) -> _Program:
     """-> the program of ``fn(*args)`` (a tensor) at the shapes, dtypes and
     device of ``example_args`` (tensors, all on one device): a CUDA graph on a
     card, eager on the CPU or under ``SEGTPU_NO_AOT=1``. ``key`` names
-    everything that shapes the program; the same key on the same device
-    returns the same program while it lives."""
+    everything that shapes the program; the same key on the same device,
+    with tracing on or off alike, returns the same program while it
+    lives."""
     dev = example_args[0].device
     graphed = dev.type == "cuda" and graphs_enabled()
     rkey = (key, str(dev), graphs_enabled())
+    if profiling.enabled():
+        rkey += ("traced",)
     prog = _PROGRAMS.get(rkey)
     if prog is not None:
         return prog

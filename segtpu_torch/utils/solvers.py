@@ -31,6 +31,8 @@ from typing import Any, Dict, Mapping, NamedTuple, Optional
 import numpy as np
 import torch
 
+from segtpu_torch.utils.profiling import span
+
 
 @dataclasses.dataclass(frozen=True)
 class SGDGroup:
@@ -38,6 +40,13 @@ class SGDGroup:
     momentum: float
     wd: float
     clip: float
+
+
+def _device_of(params: Mapping[str, torch.Tensor]):
+    """The device of the first tensor of ``params`` (None when empty)."""
+    for t in params.values():
+        return t.device
+    return None
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -71,26 +80,27 @@ class GroupSGD:
                opt_state: Dict[str, torch.Tensor],
                params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One step of every group, in place. Returns each group's global
-        gradient norm before the clip."""
+        gradient norm before the clip. Traced as ``segtpu.train.optimizer``."""
         names: Dict[str, list] = {k: [] for k in self.groups}
         for n in params:
             names[self.label(n)].append(n)
         norms = {}
-        for key, cfg in self.groups.items():
-            if not names[key]:
-                continue
-            p = [params[n] for n in names[key]]
-            g = [grads[n] if grads.get(n) is not None
-                 else torch.zeros_like(params[n]) for n in names[key]]
-            norms[key] = norm = global_norm(g)
-            keep = norm < cfg.clip
-            g = [torch.where(keep, t, t / norm * cfg.clip) for t in g]
-            if cfg.wd:
-                g = torch._foreach_add(g, p, alpha=cfg.wd)
-            trace = [opt_state[n] for n in names[key]]
-            torch._foreach_mul_(trace, cfg.momentum)
-            torch._foreach_add_(trace, g)
-            torch._foreach_add_(p, trace, alpha=-cfg.lr)
+        with span("segtpu.train.optimizer", device=_device_of(params)):
+            for key, cfg in self.groups.items():
+                if not names[key]:
+                    continue
+                p = [params[n] for n in names[key]]
+                g = [grads[n] if grads.get(n) is not None
+                     else torch.zeros_like(params[n]) for n in names[key]]
+                norms[key] = norm = global_norm(g)
+                keep = norm < cfg.clip
+                g = [torch.where(keep, t, t / norm * cfg.clip) for t in g]
+                if cfg.wd:
+                    g = torch._foreach_add(g, p, alpha=cfg.wd)
+                trace = [opt_state[n] for n in names[key]]
+                torch._foreach_mul_(trace, cfg.momentum)
+                torch._foreach_add_(trace, g)
+                torch._foreach_add_(p, trace, alpha=-cfg.lr)
         return norms
 
 
@@ -173,12 +183,15 @@ def polyak_update(avg_params: Dict[str, torch.Tensor],
     """Polyak averaging in place: ``avg = d * avg + (1 - d) * p`` with
     ``d = polyak_decay(decay, step)`` (``step``: the count of steps
     before this one), in f32 as the JAX package computes it: a running
-    mean over the first 1 / (1 - decay) steps."""
+    mean over the first 1 / (1 - decay) steps. Traced as
+    ``segtpu.train.polyak``."""
     d = np.float32(polyak_decay(decay, step))
     one_minus = np.float32(1.0) - d
     avg = [avg_params[n] for n in params]
-    torch._foreach_mul_(avg, float(d))
-    torch._foreach_add_(avg, list(params.values()), alpha=float(one_minus))
+    with span("segtpu.train.polyak", device=_device_of(params)):
+        torch._foreach_mul_(avg, float(d))
+        torch._foreach_add_(avg, list(params.values()),
+                            alpha=float(one_minus))
     return avg_params
 
 

@@ -19,10 +19,12 @@ on the CPU:
 * ``measure_checkpoint_miou`` equal to JAX's on one ``run_training``
   checkpoint over an on-disk split of ``.npy`` files;
 * ``debug_mode`` raising on a planted NaN, forward and backward;
-  ``trace`` writing a trace; ``StepTimer.steps_per_sec`` and
-  ``sec_per_step`` against the JAX package's on the same clock.
+  ``trace`` writing a trace and the program's spans;
+  ``StepTimer.steps_per_sec`` and ``sec_per_step`` against the JAX
+  package's on the same clock.
 """
 
+import json
 import logging
 import os
 
@@ -266,12 +268,22 @@ def test_debug_mode_raises_on_a_backward_nan():
 
 
 def test_trace_writes_a_trace(tmp_path):
+    from segtpu_torch.utils.solvers import polyak_update
     logdir = tmp_path / "trace"
+    assert not profiling.enabled()
     with trace(str(logdir)):
+        # tracing is on in the block: the program's spans are recorded
+        assert profiling.enabled()
         torch.nn.Linear(4, 4)(torch.ones(2, 4)).sum()
+        polyak_update({"w": torch.zeros(3)}, {"w": torch.ones(3)}, 0.9, 5)
+    assert not profiling.enabled()
     path = logdir / "trace.json"
     assert path.is_file() and os.path.getsize(path) > 0
-    assert "aten::" in path.read_text()
+    text = path.read_text()
+    assert "aten::" in text and "segtpu.train.polyak" in text
+    spans = json.loads((logdir / "spans.json").read_text())
+    assert [s["name"] for s in spans] == ["segtpu.train.polyak"]
+    assert spans[0]["host_ms"] > 0 and spans[0]["parent"] is None
 
 
 class _Clock:
