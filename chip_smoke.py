@@ -197,7 +197,11 @@ Phases, each a hard failure (non-zero exit) when it fails:
    frames): PATH_LAUNCHES, every decoder call against its twin as in
    phase 5, the masks against use_kernels=False by the near-tie rule
    (agreement printed; no floor). The control trains the same state and
-   adds the hand-off's decoder calls to the checks that must fail.
+   adds the hand-off's decoder calls to the checks that must fail. (6)
+   The train BatchNorm (train_bn_checks): one step takes the kernel
+   route (kernels/bn_train.py) at all 94 BatchNorms, 376 launches, and
+   at each (shape, activation) of that step the kernels hold to their
+   plain twins within 1e-4 of each output's largest |.|.
 11. search: the NAS search (segtpu_torch.search.run_search) at the
    published widths (MobileNet-v2 1.0, agg_size 48, the controller's
    LSTM hidden and embedding 100), 21 classes (PASCAL VOC), 512x512
@@ -239,7 +243,9 @@ Phases, each a hard failure (non-zero exit) when it fails:
    memory. Checks: (a) K x rounds records, "mode" supernet, rewards in
    [0, 1], the snapshot at step K x rounds with the last record's
    baseline; (b) one vectorised K = 8 population step against the 8
-   samples' sequential steps (make_sequential_train_step), TF32 off, and
+   samples' sequential steps (make_sequential_train_step, on the
+   written-out train BatchNorm as the vmapped step is: written_out_bn),
+   TF32 off, and
    (c) the step and eval on make_mesh(4, 1) of the one card against the
    unsharded ones: losses and every state leaf within POP_TOL of
    max(|leaf|, POP_FLOOR), confusion matrices within CM_SHARE of their
@@ -3207,8 +3213,11 @@ def phase_train(torch, frames):
         stage1 = train_stage1(torch, state.model, gbatch)
         miou = train_eval(torch, state, gbatch)
     handoff = train_handoff(torch, state, frames)
+    with tf32(torch, False):
+        bn = train_bn_checks(torch, gbatch)
     return {"gpu": gpu, "parity_worst": parity, "steps": timed,
-            "stage1": stage1, "eval_miou": miou, "handoff": handoff}
+            "stage1": stage1, "eval_miou": miou, "handoff": handoff,
+            "bn_train": bn}
 
 
 TRAIN_KERNEL_KINDS = (
@@ -3230,28 +3239,30 @@ def kernel_rows(torch, p):
 
 
 def bn_alone(torch, state, step, gbatch, reps: int = 3) -> dict:
-    """The train-mode BatchNorm (``core.layers.bn_train``) of one step,
-    forward and backward, run alone: one step run with a spy that records
-    the shape of each call, then every call at its shape on seeded
-    inputs, its output's gradient the same shape. Its kernels' device
-    time (profiler) and its time on the stream (CUDA events, over
-    ``reps`` runs, the host's gaps included)."""
+    """The train-mode BatchNorms and activations of one step
+    (``kernels.bn_train.bn_act_train``), forward and backward, run alone
+    on each route: one step run with a spy that records the shape and
+    activation of each call, then every call at its shape on seeded
+    inputs, its output's gradient the same shape, through the kernels
+    (``kernel``) and through the written-out twin (``plain``). Each
+    route's kernels' device time (profiler) and its time on the stream
+    (CUDA events, over ``reps`` runs, the host's gaps included)."""
     from torch.profiler import ProfilerActivity, profile as prof
-    import segtpu_torch.core.layers as layers
-    real, shapes = layers.bn_train, []
+    from segtpu_torch.kernels import bn_train as bnk
+    real, shapes = bnk.bn_act_train, []
 
     def spy(y, *rest):
-        shapes.append((tuple(y.shape), y.dtype))
+        shapes.append((tuple(y.shape), y.dtype, rest[-1]))
         return real(y, *rest)
 
-    layers.bn_train = spy
+    bnk.bn_act_train = spy
     try:
         step(state, gbatch)
     finally:
-        layers.bn_train = real
+        bnk.bn_act_train = real
     gen = torch.Generator(device="cuda").manual_seed(5)
     calls = []
-    for shape, dtype in shapes:
+    for shape, dtype, act in shapes:
         c = shape[1]
         calls.append((
             torch.randn(shape, generator=gen, device="cuda", dtype=dtype,
@@ -3259,29 +3270,102 @@ def bn_alone(torch, state, step, gbatch, reps: int = 3) -> dict:
             torch.ones(c, device="cuda", requires_grad=True),
             torch.zeros(c, device="cuda", requires_grad=True),
             torch.zeros(c, device="cuda"), torch.ones(c, device="cuda"),
+            act,
             torch.randn(shape, generator=gen, device="cuda", dtype=dtype)))
+    res = {"calls": len(calls)}
+    for route, fn in (("kernel", bnk._BnActTrain.apply),
+                      ("plain", bnk.bn_act_train_plain)):
+        def run():
+            for y, scale, bias, mean, var, act, g in calls:
+                torch.autograd.grad(fn(y, scale, bias, mean, var, act),
+                                    (y, scale, bias), g)
 
-    def run():
-        for y, scale, bias, mean, var, g in calls:
-            torch.autograd.grad(real(y, scale, bias, mean, var),
-                                (y, scale, bias), g)
-
-    run()
-    torch.cuda.synchronize()
-    with prof(activities=[ProfilerActivity.CUDA]) as p:
         run()
         torch.cuda.synchronize()
-    rows = kernel_rows(torch, p)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        run()
-    end.record()
+        with prof(activities=[ProfilerActivity.CUDA]) as p:
+            run()
+            torch.cuda.synchronize()
+        rows = kernel_rows(torch, p)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        res[route] = {"device_ms": sum(r[1] for r in rows),
+                      "launches": sum(r[2] for r in rows),
+                      "stream_ms": start.elapsed_time(end) / reps}
+    return res
+
+
+def train_bn_checks(torch, gbatch) -> dict:
+    """Phase 10's train BatchNorm: one arch0 train step on the card takes
+    the kernel route at all 94 BatchNorms (``BN_TRAIN_ROUTES``, 4
+    launches each); at every (shape, activation) of that step the
+    kernels against their plain twins (``bn_act_train_plain`` forward,
+    ``bn_act_backward_plain`` fed the kernels' saved statistics): each
+    output within 1e-4 of its largest |.| (another order of sums), one
+    bf16 unit more where the output is bf16."""
+    from segtpu_torch.core import layers
+    from segtpu_torch.kernels import bn_train as bnk
+    state, step = train_setup(torch, train_model(torch).cuda())
+    before = dict(layers.BN_TRAIN_ROUTES)
+    launches = bnk.bn_act_train.launches
+    real, seen = bnk.bn_act_train, set()
+
+    def spy(y, *rest):
+        seen.add((tuple(y.shape), y.dtype, rest[-1]))
+        return real(y, *rest)
+
+    bnk.bn_act_train = spy
+    try:
+        step(state, gbatch)
+    finally:
+        bnk.bn_act_train = real
     torch.cuda.synchronize()
-    return {"calls": len(calls), "device_ms": sum(r[1] for r in rows),
-            "launches": sum(r[2] for r in rows),
-            "stream_ms": start.elapsed_time(end) / reps}
+    moved = {k: layers.BN_TRAIN_ROUTES[k] - before.get(k, 0)
+             for k in ("kernel", "plain")}
+    n_launch = bnk.bn_act_train.launches - launches
+    print(f"[train] BatchNorm routes of one step: {moved}, "
+          f"{n_launch} kernel launches")
+    check(moved == {"kernel": 94, "plain": 0} and n_launch == 376,
+          f"train BatchNorm routes {moved}, {n_launch} launches: want 94 "
+          f"on the kernel route, 376 launches")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = 0.0
+    for shape, dtype, act in sorted(seen, key=str):
+        c = shape[1]
+        y = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        scale = 1 + 0.5 * torch.randn(c, generator=gen, device="cuda")
+        bias = 0.5 * torch.randn(c, generator=gen, device="cuda")
+        bufs = [0.1 * torch.randn(c, generator=gen, device="cuda"),
+                1 + torch.rand(c, generator=gen, device="cuda")]
+        ya = y.clone().requires_grad_()
+        sa, ba = scale.clone().requires_grad_(), bias.clone().requires_grad_()
+        kb = [t.clone() for t in bufs]
+        out = bnk._BnActTrain.apply(ya, sa, ba, *kb, act)
+        saved_mean, saved_invstd = out.grad_fn.saved_tensors[1:3]
+        got = [out, *kb, *torch.autograd.grad(out, (ya, sa, ba), dy)]
+        tb = [t.clone() for t in bufs]
+        want = [bnk.bn_act_train_plain(y, scale, bias, *tb, act), *tb,
+                *bnk.bn_act_backward_plain(dy, y, saved_mean, saved_invstd,
+                                           scale, bias, act)]
+        for name, a, b in zip(("out", "running mean", "running var", "dx",
+                               "dscale", "dbias"), got, want):
+            ulp = 2.0 ** -7 if a.dtype == torch.bfloat16 else 0.0
+            err = (a.float() - b.float()).abs()
+            room = 1e-4 * b.float().abs().max() + ulp * b.float().abs()
+            over = (err - room).max().item()
+            rel = (err.max() / b.float().abs().max().clamp_min(1e-30)).item()
+            worst = max(worst, rel)
+            check(over <= 0, f"bn_train {name} at {shape} {dtype} {act}: "
+                  f"{err.max().item()} beyond its tolerance")
+    print(f"[train] BatchNorm kernels against their twins at {len(seen)} "
+          f"shapes of the step: worst gap {worst!r} of the largest |.|")
+    return {"routes": moved, "launches": n_launch, "shapes": len(seen),
+            "worst_rel": worst}
 
 
 def profile_train(torch):
@@ -3319,12 +3403,14 @@ def profile_train(torch):
           + ", ".join(f"{k} {v:.2f} ms ({100 * v / dev_ms:.1f} %)"
                       for k, v in sorted(kinds.items(),
                                          key=lambda kv: -kv[1])))
-    print(f"[profile] train step {dims(batch)}: BatchNorm (bn_train) "
-          f"forward and backward, its {bn['calls']} calls of a step run "
-          f"alone: {bn['device_ms']:.4f} ms of device time in "
-          f"{bn['launches']} launches ({200 * bn['device_ms'] / dev_ms:.1f} "
-          f"% of a step's {dev_ms / 2:.2f}), {bn['stream_ms']:.4f} ms on the "
-          f"stream")
+    for route in ("kernel", "plain"):
+        r = bn[route]
+        print(f"[profile] train step {dims(batch)}: BatchNorm and "
+              f"activation ({route} route) forward and backward, its "
+              f"{bn['calls']} calls of a step run alone: {r['device_ms']:.4f}"
+              f" ms of device time in {r['launches']} launches "
+              f"({200 * r['device_ms'] / dev_ms:.1f} % of a step's "
+              f"{dev_ms / 2:.2f}), {r['stream_ms']:.4f} ms on the stream")
     print(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
     return {"wall_ms_two_steps": wall_ms, "device_ms_two_steps": dev_ms,
             "launches_two_steps": launches, "by_kind_ms": kinds,
@@ -3998,6 +4084,24 @@ def profile_supernet(torch):
     return out
 
 
+@contextlib.contextmanager
+def written_out_bn():
+    """Train BatchNorm on its written-out route inside the block, as
+    under vmap. (b) holds the vectorised step, whose BatchNorm is the
+    written-out one, to the sequential steps on the same BatchNorm, so it
+    checks the vmap alone: on an H100 the kernel route moved the
+    sequential step's worst leaf (a conv weight's momentum trace) by
+    6.4e-3 of its max, and taps one rounding apart moved the written-out
+    step's by 5.9e-2, far above POP_TOL either way."""
+    from segtpu_torch.kernels import bn_train as bnk
+    on_card = bnk._on_card
+    bnk._on_card = lambda t: False
+    try:
+        yield
+    finally:
+        bnk._on_card = on_card
+
+
 def population_checks(torch, cfg, bits=None):
     """(b) and (c) on the phase's first cached batch and K = 8 genotypes
     sampled by the cvpr controller: one vectorised population step
@@ -4033,7 +4137,8 @@ def population_checks(torch, cfg, bits=None):
     graphed = sn.GraphedPopulationStep(spec, opt,
                                        aux_weight=cfg.dec_aux_weight)
     a, la = vec(pop, masks, batch)
-    b, lb = seq(pop, masks, batch)
+    with written_out_bn():
+        b, lb = seq(pop, masks, batch)
     g, lg = graphed(pop, masks, batch)
     loss_b, leaf_b = worst(a, la, b, lb)
     loss_g, leaf_g = worst(g, lg, b, lb)

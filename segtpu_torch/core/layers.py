@@ -19,10 +19,17 @@ the moments of the whole batch, every shard's partial sums combined, as
 XLA's reductions over a sharded batch give the JAX package's; on a mesh
 with ``space`` > 1 the convolutions are ``core.bands.conv2d``'s, each
 shard computing its band of rows.
+
+In train mode ``ConvBN`` runs BatchNorm and its activation as
+``kernels.bn_train.bn_act_train``: the CUDA kernels on a card's tensor
+outside ``shard_context`` and every ``torch.func`` transform, else
+``bn_train`` and the activation written out. ``BN_TRAIN_ROUTES`` counts
+the calls of each route, ``"kernel"`` and ``"plain"``.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -33,6 +40,7 @@ from segtpu_torch.utils.profiling import span
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
+BN_TRAIN_ROUTES: collections.Counter = collections.Counter()
 
 
 def relu(x):
@@ -157,12 +165,20 @@ class ConvBN(nn.Module):
         self.register_buffer("var", torch.ones(cout))
         self.eval()
 
-    def bn(self, y):
-        norm = bn_train if self.training else bn_eval
-        return norm(y, self.scale, self.bias, self.mean, self.var)
+    def bn_act(self, y, act: str):
+        """BatchNorm of the conv output ``y``, then ``act``: in train mode
+        ``bn_act_train`` (its route counted in ``BN_TRAIN_ROUTES``), in
+        eval mode ``bn_eval``."""
+        if self.training:
+            # kernels.bn_train imports this module
+            from segtpu_torch.kernels.bn_train import bn_act_train
+            return bn_act_train(y, self.scale, self.bias, self.mean,
+                                self.var, act)
+        return ACTIVATIONS[act](bn_eval(y, self.scale, self.bias, self.mean,
+                                        self.var))
 
     def forward(self, x):
         y = bands.conv2d(x, self.w.to(x.dtype), stride=self.stride,
                          padding=self.padding, dilation=self.dilation,
                          groups=self.groups)
-        return ACTIVATIONS[self.act](self.bn(y))
+        return self.bn_act(y, self.act)

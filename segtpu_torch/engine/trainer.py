@@ -16,12 +16,16 @@ package's loaders give them: ``image`` f32 [N, H, W, 3] normalized and
 the model's device once, as NCHW. ``teacher`` (KD targets) and the
 cached ``taps`` are the port's NCHW tensors. Convolutions forward and
 backward are library calls (cuDNN on the card), as the JAX package's
-are XLA's: no Pallas kernel is on its train or eval path.
+are XLA's: no Pallas kernel is on its train or eval path. Train-mode
+BatchNorm and its activation run as hand-written CUDA kernels on a
+card's tensors (``kernels.bn_train.bn_act_train``), forward and
+backward, and written out elsewhere.
 
 Under ``utils.profiling.tracing()`` a ``make_train_step`` step records
 host and device spans: the root ``segtpu.train.step`` with the state's
 step as its request id, ``.forward`` (the model with its aux heads, one
-``.bn`` child a train BatchNorm), ``.loss``, ``.backward`` (the
+``.bn`` child a train BatchNorm, with its activation on the kernel
+route), ``.loss``, ``.backward`` (the
 gradients), ``.optimizer`` and ``.polyak``; its ``parts`` record the
 same below whatever calls them (``parallel.mesh``'s sharded step).
 """

@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 
 from segtpu_torch.core import bands
-from segtpu_torch.core.layers import ConvBN, relu6
+from segtpu_torch.core.layers import ConvBN
 
 # (expansion t, out channels c, repeats n, first-stride s)
 _MBV2_CFG = (
@@ -103,7 +103,7 @@ class MobileNetV2(nn.Module):
             # the top row of padding is the image's, not each band's
             w2 = stem_s2d_kernel(self.stem.w).to(x.dtype)
             y = bands.conv2d(x, w2, padding=(1, 0, 1, 0))
-            y = relu6(self.stem.bn(y))
+            y = self.stem.bn_act(y, "relu6")
         elif input_format == "nhwc3":
             y = self.stem(x)
         else:
