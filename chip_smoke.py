@@ -322,6 +322,21 @@ Phases, each a hard failure (non-zero exit) when it fails:
    MASK_FLOOR["arch0"], then their bench lines, held as in (d). The
    pw_chain_chw and pw_multi_chw calls of phase 5 are also timed as a
    CUDA graph's launches (graph_ms in their rows).
+17. deeplab (last): DeepLab-v3's ASPP head on MobileNet-v2 at output
+   stride 16 (the deeplab family, weights of DEEPLAB_SEED with BatchNorm
+   perturbed and the classifier's bias centred on a frame) at b8
+   1024x2048, through predict_batch (DEEPLAB_LAUNCHES: 14 inv_res_chw,
+   three of them at rate 2, 3 inv_res_s2_chw, 2 aspp_chw, the stem's and
+   the classifier's conv_chw, the W-first tail). (a) The four stride-16
+   blocks (the first 160-channel one at rate 1, then three at rate 2),
+   each on the kernel's own input, bit for bit against their twins
+   (_exact). (b) aspp_chw's two launches (the 1x1 and three atrous
+   branches into their concatenation; the projection with the pooled
+   vector) against their twins on the same inputs under _compare's
+   floors (>= 99 % bit-identical, worst <= 1e-2 of max(|ref|, 1)). (c)
+   The call's masks against the use_kernels=False run by the slice rule
+   at MASK_FLOOR["deeplab"]. Then each stage timed (CUDA events), beside
+   F.conv2d bf16 of the head's convolutions (library_ms).
 
 Prints the kernels JSON line (each row also with its launches on
 template0's path) and the card's name and power limit, then, last,
@@ -1537,7 +1552,12 @@ NEAR_TIE = 2e-2
 # plain twins': G2 as every mask check before the tensor-core decoder;
 # arch0 just under its measured 99.66-99.74 % (H100): its 3x3 dense
 # branches and dilated sep convs chain more roundings per pixel
-MASK_FLOOR = {"G2": 0.999, "arch0": 0.996, "template0": 0.999}
+MASK_FLOOR = {"G2": 0.999, "arch0": 0.996, "template0": 0.999,
+              # the head's 3x3 atrous sums (K = 2880) and its projection
+              # (K = 1024) on the tensor cores, each pixel's class then
+              # decided by the 16x W-first upsampling of 1/16 logits: a
+              # rounding apart at a logit moves a 16x16 patch of pixels
+              "deeplab": 0.996}
 
 
 def tie_gaps(torch, ref, x):
@@ -2642,6 +2662,8 @@ def coarse_decoder(torch, bits: int):
     vf = importlib.import_module("segtpu_torch.kernels.vpu_floor")
     tf = importlib.import_module("segtpu_torch.kernels.tail_flat")
     patches += [(vf, "_tap_launch", coarse), (tf, "_clf_launch", flip_last)]
+    ap = importlib.import_module("segtpu_torch.kernels.aspp")
+    patches += [(ap, "_aspp_launch", coarse)]
     saved = [(mod, n, getattr(mod, n)) for mod, n, _ in patches]
     for mod, n, make in patches:
         setattr(mod, n, make(getattr(mod, n)))
@@ -2832,6 +2854,9 @@ def phase_control(torch, bits: int) -> dict:
     res.update(fidelity_control(torch))
     res.update(space_control(torch))
     res.update(bench_control(torch, bits))
+    with coarse_decoder(torch, bits):
+        for what, run in deeplab_checks(torch, *deeplab_setup(torch)[:3]):
+            res[f"deeplab {what}"] = must_fail(f"deeplab {what}", run)
     return res
 
 
@@ -5501,6 +5526,7 @@ def main() -> None:
     data_parallel = phase_data_parallel(torch)
     fidelity = phase_fidelity(torch)
     space = phase_space(torch)
+    deeplab = phase_deeplab(torch)
     if "--profile" in sys.argv[1:]:
         profile(torch, seg, seg_t, frames)
         train["profile"] = profile_train(torch)
@@ -5521,13 +5547,174 @@ def main() -> None:
                    "experiments": experiments, "train": train,
                    "search": search, "supernet": supernet,
                    "data_parallel": data_parallel, "fidelity": fidelity,
-                   "space": space, "bench": bench},
+                   "space": space, "bench": bench, "deeplab": deeplab},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+# weights of the deeplab phase (BatchNorm perturbed, the classifier's bias
+# centred on the first frame, so masks hold every class)
+DEEPLAB_SEED = 5
+DEEPLAB_LAUNCHES = {"front": 1, "conv_chw": 2, "inv_res_chw": 14,
+                    "inv_res_s2_chw": 3, "aspp_chw": 2,
+                    "upsample_argmax": 0, "upsample_argmax_flat": 1}
+
+
+def deeplab_setup(torch):
+    """(engine, its use_kernels=False twin, b8 1024x2048 frames on the
+    card, the model) of the deeplab family at DEEPLAB_SEED."""
+    from segtpu_torch.core.layers import ConvBN
+    from segtpu_torch.engine import Segmenter
+    from segtpu_torch.models import create_segmenter
+    from segtpu_torch.models.aspp_decoder import DEEPLABV3
+    gen = torch.Generator().manual_seed(DEEPLAB_SEED)
+    model = create_segmenter(DEEPLABV3, K, generator=gen, device="cpu")
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, ConvBN):
+                m.scale.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.mean.normal_(0.0, 0.1, generator=gen)
+                m.var.uniform_(0.5, 1.5, generator=gen)
+    g = torch.Generator(device="cuda").manual_seed(DEEPLAB_SEED)
+    coarse = torch.rand((N, 3, H // 64 + 1, W // 64 + 1), generator=g,
+                        device="cuda")
+    x = torch.nn.functional.interpolate(coarse, size=(H, W), mode="bilinear",
+                                        align_corners=True)
+    x = (x + 0.1 * (torch.rand(x.shape, generator=g, device="cuda") - 0.5))
+    frames = (x.clamp(0, 1) * 255).round().to(torch.uint8).permute(
+        0, 2, 3, 1).contiguous()
+    ref = Segmenter(model, device="cuda", use_kernels=False)
+    with torch.no_grad():
+        lg = ref.predict(frames[:1], return_logits=True)
+        model.decoder.clf.b -= lg.mean((0, 2, 3)).cpu()
+    del lg
+    seg = Segmenter(model, device="cuda")
+    ref = Segmenter(model, device="cuda", use_kernels=False)
+    return seg, ref, frames, model
+
+
+def deeplab_stages(torch, seg, frames):
+    """(taps input of the four stride-16 blocks, [(block, its input)],
+    the 320-channel map f) of the engine ``seg`` on ``frames``, each
+    block fed the kernel's output of the one before."""
+    from segtpu_torch.kernels.front import normalize_s2d_front
+    enc = seg.encoder
+    with torch.inference_mode():
+        y = enc.stem(normalize_s2d_front(frames).contiguous())
+        for blk in enc.blocks[:enc.atrous_from]:
+            y = blk(y)
+        stages = []
+        for blk in enc.blocks[enc.atrous_from:]:
+            stages.append((blk, y))
+            y = blk(y)
+    return stages, y
+
+
+def deeplab_checks(torch, seg, ref, frames):
+    """[(what, check())] of the deeplab phase: (a) the four stride-16
+    blocks bit for bit against their twins, (b) aspp_chw's two launches
+    against their twins, (c) the call's masks by the slice rule."""
+    from segtpu_torch.kernels.aspp import aspp_chw
+    stages, f = deeplab_stages(torch, seg, frames)
+    dec = seg.decoder
+    out = []
+    for i, (blk, y) in enumerate(stages):
+        what = (f"stride-16 block {i} (rate {blk.dilation}, "
+                f"{tuple(blk.w_proj.shape[:2])})")
+
+        def run(blk=blk, y=y, what=what):
+            with torch.inference_mode():
+                _exact(torch, blk(y, True), blk(y, False), what)
+        out.append((what, run))
+    ws, bs, wps = dec.branch_weights()
+
+    def branches(use_kernels):
+        with torch.inference_mode():
+            return aspp_chw(f, ws, bs, dec.dilations, packed=wps,
+                            use_kernels=use_kernels)
+
+    cat = branches(False)
+
+    def projection(use_kernels):
+        with torch.inference_mode():
+            return aspp_chw(cat, [dec.proj_w], [dec.proj_b], [1],
+                            dec.vector(f), packed=[dec.proj_wp],
+                            use_kernels=use_kernels)
+
+    out.append(("aspp_chw branches (1x1 and rates 6, 12, 18)",
+                lambda: _compare(torch, branches(True), branches(False),
+                                 "aspp_chw branches")))
+    out.append(("aspp_chw projection (with the pooled vector)",
+                lambda: _compare(torch, projection(True), projection(False),
+                                 "aspp_chw projection")))
+
+    def masks():
+        x = frames
+        gaps = tie_gaps(torch, ref, x)
+        masks_hold(torch, seg.predict_batch(x), ref.predict_batch(x), gaps,
+                   MASK_FLOOR["deeplab"], "deeplab b8 masks vs "
+                   "use_kernels=False")
+    out.append(("b8 masks vs use_kernels=False", masks))
+    return out
+
+
+def phase_deeplab(torch) -> dict:
+    """Phase 17: see the module doc."""
+    from segtpu_torch.kernels import chw_ops
+    from segtpu_torch.kernels.aspp import aspp_chw
+    seg, ref, frames, _ = deeplab_setup(torch)
+    wrappers = dict(kernel_wrappers(), aspp_chw=aspp_chw)
+    for fn in wrappers.values():
+        fn.launches = 0
+    dilated0 = chw_ops.inv_res_chw.dilated_calls
+    masks = seg.predict_batch(frames)
+    launches = {n: wrappers[n].launches for n in DEEPLAB_LAUNCHES}
+    dilated = chw_ops.inv_res_chw.dilated_calls - dilated0
+    print(f"[deeplab] predict_batch b8 {H}x{W}: launches={launches} "
+          f"rate-2 calls={dilated}")
+    check(launches == DEEPLAB_LAUNCHES,
+          f"deeplab launches {launches}, expected {DEEPLAB_LAUNCHES}")
+    check(dilated == 3, f"{dilated} inv_res_chw calls at rate 2, expected 3")
+    check(tuple(masks.shape) == (N, H, W) and masks.dtype == torch.uint8,
+          f"deeplab masks {tuple(masks.shape)} {masks.dtype}")
+    classes = torch.bincount(masks.flatten().long(), minlength=K)
+    print(f"[deeplab] b8 classes={classes.tolist()}")
+    check(int((classes > 0).sum()) >= K // 2,
+          f"deeplab masks hold {int((classes > 0).sum())} classes")
+    for what, run in deeplab_checks(torch, seg, ref, frames):
+        run()
+    # timing: the four stride-16 blocks, the head, the library's bf16
+    # convolutions of the head, the whole call
+    stages, f = deeplab_stages(torch, seg, frames)
+    dec = seg.decoder
+    t = {}
+    with torch.inference_mode():
+        y0 = stages[0][1]
+
+        def atrous():
+            y = y0
+            for blk, _ in stages:
+                y = blk(y)
+            return y
+        t["atrous_blocks"] = cuda_ms(atrous, 10)
+        t["head"] = cuda_ms(lambda: dec([None, None, None, f]), 10)
+        ws, bs, _ = dec.branch_weights()
+        F = torch.nn.functional
+
+        def library():
+            cat = torch.cat([F.conv2d(f, w, b.to(f.dtype), padding=d * (
+                w.shape[-1] // 2), dilation=d).relu()
+                for w, b, d in zip(ws, bs, dec.dilations)], 1)
+            return F.conv2d(cat, dec.proj_w, dec.proj_b.to(f.dtype)).relu()
+        t["head_library"] = cuda_ms(library, 10)
+        t["predict_batch"] = cuda_ms(lambda: seg.predict_batch(frames), 10)
+    print(f"[deeplab] ms: {t} on {gpu_line()}")
+    return {"launches": launches, "timing_ms": t}
 
 
 def profile(torch, seg, seg_t, frames):

@@ -14,6 +14,12 @@
 //         S*i-1..S*i+1, columns S*j-1..S*j+1);
 //   out = round(w_proj . d + b_proj (+ x when residual)), the product
 //         accumulated in f32 on compute-dtype operands.
+// At depthwise rate D (inv_res_kernel<T, 1, RP, 2>: the blocks that an
+// output stride 16 encoder runs in place of stride 2, slim's output_stride
+// rule) output (i, j) reads rows i-D, i, i+D and columns j-D, j, j+D, zero
+// padding D: the window grows by D on each side and the taps stand D
+// apart; the order of every sum is the same. A rate-1 launch is
+// inv_res_kernel<T, S, RP, 1>, whose code is the rate-less kernel's.
 // Every sum runs from zero in ascending order (expand over Cin, depthwise
 // over the taps row-major, project over Cmid, chunk after chunk), each
 // product and add rounded once: the plain twin's order
@@ -168,8 +174,10 @@ struct Args {
   int B, Cin, Cmid, Cout, H, W, Ho, Wo, TH, TW, MC, residual, pf;
 };
 
-// Sizes of a plan: the window's rows and columns, the column its column
-// 0 sits at (xo: kShift for a prefetched window, else 0), the row pitch
+// Sizes of a plan: the window's rows and columns (the tile's receptive
+// field at stride S and depthwise rate D: S*TH + 2D + 1 - S rows), the
+// column its column 0 sits at (xo: kShift for a prefetched window, else
+// 0), the row pitch
 // (xo + columns, rounded to 4), its plane, the tile's pixels, the expand
 // weights' pitch (MC rounded to 8), the project's channel groups and
 // their padded channel count, its pixel groups, the block's threads.
@@ -177,10 +185,10 @@ struct Geo {
   int wh, ww, xo, wwp, xp, p, mce, ncg, coutp, npg, nt;
 };
 __host__ __device__ inline Geo geo(int S, int Cout, int TH, int TW, int MC,
-                                   int RP, int pf) {
+                                   int RP, int pf, int D = 1) {
   Geo g;
-  g.wh = S * TH + 3 - S;
-  g.ww = S * TW + 3 - S;
+  g.wh = S * TH + 2 * D + 1 - S;
+  g.ww = S * TW + 2 * D + 1 - S;
   g.xo = pf ? kShift : 0;
   g.wwp = round4(g.xo + g.ww);
   g.xp = g.wh * g.wwp;
@@ -235,12 +243,20 @@ __device__ __forceinline__ float load1(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-// The 4S + 2 values of a depthwise window row that 4 outputs at stride S
-// read, from row[XO] on; row is 16-byte (f32) or 8-byte (bf16) aligned, and
-// XO is 0 or kShift.
-template <int S, int XO, typename P>
-__device__ __forceinline__ void dw_row(const P* row, float (&v)[4 * S + 2]) {
-  if constexpr (XO == 0) {
+// The 4S + 2D values of a depthwise window row that 4 outputs at stride S
+// and rate D read (3S + 2D + 1 of them used), from row[XO] on; row is
+// 16-byte (f32) or 8-byte (bf16) aligned, and XO is 0 or kShift (rate 1
+// only: a dilated block is never prefetched).
+template <int S, int D, int XO, typename P>
+__device__ __forceinline__ void dw_row(const P* row,
+                                       float (&v)[4 * S + 2 * D]) {
+  static_assert(D == 1 || (D == 2 && S == 1 && XO == 0),
+                "rate 2 is instantiated at stride 1 without prefetch");
+  if constexpr (D == 2) {   // 8 values: two aligned quads
+    const float4 a = load4(row), b = load4(row + 4);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else if constexpr (XO == 0) {
     const float4 a = load4(row);
     v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
     if constexpr (S == 1) {
@@ -265,26 +281,27 @@ __device__ __forceinline__ void dw_row(const P* row, float (&v)[4 * S + 2]) {
 
 // The depthwise sums of R x 4 outputs (R tile rows, 4 columns) from their
 // window rows at src (pitch wwp), each window row read once: every output
-// takes its taps in the twin's order (row-major, as y ascends), each
-// product and add rounded.
-template <int S, int R, int XO, typename P>
+// takes its taps (rows and columns D apart) in the twin's order
+// (row-major, as y ascends), each product and add rounded.
+template <int S, int D, int R, int XO, typename P>
 __device__ __forceinline__ void dw_quads(const P* src, int wwp,
                                          const float (&w)[9],
                                          float (&s)[R][4]) {
 #pragma unroll
-  for (int y = 0; y < S * (R - 1) + 3; ++y) {
-    float v[4 * S + 2];
-    dw_row<S, XO>(src + y * wwp, v);
+  for (int y = 0; y < S * (R - 1) + 2 * D + 1; ++y) {
+    float v[4 * S + 2 * D];
+    dw_row<S, D, XO>(src + y * wwp, v);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const int ky = y - S * r;
-      if (ky < 0 || ky > 2) continue;
+      const int dy = y - S * r;
+      if (dy < 0 || dy > 2 * D || dy % D) continue;
+      const int ky = dy / D;
 #pragma unroll
       for (int kx = 0; kx < 3; ++kx)
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          s[r][u] =
-              __fadd_rn(s[r][u], __fmul_rn(w[3 * ky + kx], v[S * u + kx]));
+          s[r][u] = __fadd_rn(s[r][u],
+                              __fmul_rn(w[3 * ky + kx], v[S * u + D * kx]));
     }
   }
 }
@@ -294,7 +311,7 @@ __device__ __forceinline__ void dw_quads(const P* src, int wwp,
 // columns of one channel (items quad-fastest, a thread stepping by the
 // block's threads without dividing); the small weights at sm
 // ([MC][kTaps]: 9 taps, the bias).
-template <typename T, int S, int R, int XO, typename P>
+template <typename T, int S, int D, int R, int XO, typename P>
 __device__ __forceinline__ void dw_phase(const P* planes, const Geo& g,
                                          const float* sm, float* d, int MC,
                                          int TW, int lr, int tid) {
@@ -313,7 +330,7 @@ __device__ __forceinline__ void dw_phase(const P* planes, const Geo& g,
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int u = 0; u < 4; ++u) s[r][u] = 0.f;
-    dw_quads<S, R, XO>(planes + m * g.xp + S * oy * g.wwp + 4 * S * j,
+    dw_quads<S, D, R, XO>(planes + m * g.xp + S * oy * g.wwp + 4 * S * j,
                        g.wwp, w, s);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -333,21 +350,26 @@ __device__ __forceinline__ void dw_phase(const P* planes, const Geo& g,
 }
 
 // The depthwise phase with the tile's row pairing (two rows an item where
-// the tile's rows pair up) and the window's column shift.
-template <typename T, int S, typename P>
+// the tile's rows pair up) and the window's column shift (rate 1 only).
+template <typename T, int S, int D, typename P>
 __device__ __forceinline__ void dw_chunk(const P* planes, const Geo& g,
                                          const float* sm, float* d, int MC,
                                          int TH, int TW, int lr, int tid) {
-  if (TH % 2 == 0) {
-    if (g.xo)
-      dw_phase<T, S, 2, kShift>(planes, g, sm, d, MC, TW, lr, tid);
+  if constexpr (D > 1) {
+    if (TH % 2 == 0)
+      dw_phase<T, S, D, 2, 0>(planes, g, sm, d, MC, TW, lr, tid);
     else
-      dw_phase<T, S, 2, 0>(planes, g, sm, d, MC, TW, lr, tid);
+      dw_phase<T, S, D, 1, 0>(planes, g, sm, d, MC, TW, lr, tid);
+  } else if (TH % 2 == 0) {
+    if (g.xo)
+      dw_phase<T, S, D, 2, kShift>(planes, g, sm, d, MC, TW, lr, tid);
+    else
+      dw_phase<T, S, D, 2, 0>(planes, g, sm, d, MC, TW, lr, tid);
   } else {
     if (g.xo)
-      dw_phase<T, S, 1, kShift>(planes, g, sm, d, MC, TW, lr, tid);
+      dw_phase<T, S, D, 1, kShift>(planes, g, sm, d, MC, TW, lr, tid);
     else
-      dw_phase<T, S, 1, 0>(planes, g, sm, d, MC, TW, lr, tid);
+      dw_phase<T, S, D, 1, 0>(planes, g, sm, d, MC, TW, lr, tid);
   }
 }
 
@@ -405,14 +427,15 @@ __device__ __forceinline__ Tile tile_of(int t, int TH, int TW, int ntx,
 }
 
 // Persistent blocks: block i takes tiles i, i + gridDim.x, ... of the
-// (image, TH x TW output tile) grid, x fastest.
-template <typename T, int S, int RP>
+// (image, TH x TW output tile) grid, x fastest. Depthwise rate D: 1, or 2
+// at stride 1 (the dilated blocks of an output stride 16 encoder).
+template <typename T, int S, int RP, int D>
 __global__ void __launch_bounds__(max_threads(RP))
     inv_res_kernel(const __grid_constant__ Args a) {
   using Q = typename Quad<T>::type;
   extern __shared__ __align__(16) unsigned char cc_smem[];
   const int Cin = a.Cin, MC = a.MC, TH = a.TH, TW = a.TW;
-  const Geo g = geo(S, a.Cout, TH, TW, MC, RP, a.pf);
+  const Geo g = geo(S, a.Cout, TH, TW, MC, RP, a.pf, D);
   const bool expand = a.wexp != nullptr;
   const int xsb = xs_bytes(g, Cin, sizeof(T));
   T* xs0 = reinterpret_cast<T*>(cc_smem);
@@ -471,7 +494,7 @@ __global__ void __launch_bounds__(max_threads(RP))
   // chunks in or out of the image: W % 4 == 0), zeros outside the image.
   const int nk = g.wwp / 4;
   auto prefetch_rows = [&](const Tile& tl, T* xw, int r0, int r1) {
-    const int iy0 = S * tl.oy0 - 1, ax = S * tl.ox0 - 1 - kShift;
+    const int iy0 = S * tl.oy0 - D, ax = S * tl.ox0 - D - kShift;
     const T* x = xb + (size_t)tl.b * Cin * a.H * a.W;
     for (int i = r0 * nk + tid; i < r1 * nk; i += nt) {
       const int r = i / nk, k = i - r * nk;
@@ -498,7 +521,7 @@ __global__ void __launch_bounds__(max_threads(RP))
     T* xs = xs0 + (a.pf ? (it & 1) * (xsb / (int)sizeof(T)) : 0);
     T* xn = xs0 + (a.pf ? ((it + 1) & 1) * (xsb / (int)sizeof(T)) : 0);
     const int oy0 = tl.oy0, ox0 = tl.ox0;
-    const int iy0 = S * oy0 - 1, ix0 = S * ox0 - 1;   // window origin
+    const int iy0 = S * oy0 - D, ix0 = S * ox0 - D;   // window origin
     const T* x = xb + (size_t)tl.b * Cin * a.H * a.W;
 
     // without prefetch: the window in T, zero outside the image: item (c,
@@ -662,10 +685,10 @@ __global__ void __launch_bounds__(max_threads(RP))
       // 2. depthwise 3x3 at stride S, f32; bias, relu6, one rounding. The
       //    input is mid, or without an expand the window itself.
       if (expand)
-        dw_chunk<T, S>(mid, g, sm, d, MC, TH, TW, lr, tid);
+        dw_chunk<T, S, D>(mid, g, sm, d, MC, TH, TW, lr, tid);
       else
-        dw_chunk<T, S>(xs + (size_t)c * MC * g.xp, g, sm, d, MC, TH, TW, lr,
-                       tid);
+        dw_chunk<T, S, D>(xs + (size_t)c * MC * g.xp, g, sm, d, MC, TH, TW,
+                          lr, tid);
       cp_async_wait<1>();
       __syncthreads();   // d is complete; chunk c's project weights landed
 
@@ -710,7 +733,7 @@ __global__ void __launch_bounds__(max_threads(RP))
           for (int e = 0; e < 4; ++e) y[e] = acc[i][e] + bias;
           if (a.residual) {
             const T* xr =
-                xs + co * g.xp + (oy + 1) * g.wwp + g.xo + ox + 1;
+                xs + co * g.xp + (oy + D) * g.wwp + g.xo + ox + D;
 #pragma unroll
             for (int e = 0; e < 4; ++e) y[e] += to_f32(xr[e]);
           }
@@ -729,10 +752,10 @@ __global__ void __launch_bounds__(max_threads(RP))
   }
 }
 
-template <typename T, int S, int RP>
+template <typename T, int S, int RP, int D>
 int launch(const Args& a, const Geo& g, int smem, cudaStream_t s) {
   if (g.nt > max_threads(RP)) return (int)cudaErrorInvalidValue;
-  const auto kern = inv_res_kernel<T, S, RP>;
+  const auto kern = inv_res_kernel<T, S, RP, D>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -748,14 +771,14 @@ int launch(const Args& a, const Geo& g, int smem, cudaStream_t s) {
 
 // The project tiles RP x 4 instantiated (chw_ops.INV_RES_TILES): RP 4, 8,
 // 12 and 20 in bf16, 4 and 8 in f32.
-template <typename T, int S>
+template <typename T, int S, int D = 1>
 int launch_tile(const Args& a, const Geo& g, int rp, int smem,
                 cudaStream_t s) {
-  if (rp == 4) return launch<T, S, 4>(a, g, smem, s);
-  if (rp == 8) return launch<T, S, 8>(a, g, smem, s);
+  if (rp == 4) return launch<T, S, 4, D>(a, g, smem, s);
+  if (rp == 8) return launch<T, S, 8, D>(a, g, smem, s);
   if constexpr (sizeof(T) == 2) {
-    if (rp == 12) return launch<T, S, 12>(a, g, smem, s);
-    if (rp == 20) return launch<T, S, 20>(a, g, smem, s);
+    if (rp == 12) return launch<T, S, 12, D>(a, g, smem, s);
+    if (rp == 20) return launch<T, S, 20, D>(a, g, smem, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1170,7 +1193,9 @@ int launch_mt(const TcArgs& a, int mt, int nt16, int smem, cudaStream_t s) {
 // instantiated), ceil(Cout / RP) TH TW / 4 threads (at most 512 for RP <=
 // 12, else 256); pf 1: each block prefetches its next tile's window while
 // it computes the current one (W % 4 == 0, x aligned to 4 values); smem
-// must be the layout's byte count (chw_ops.inv_res_plan, inv_res_smem).
+// must be the layout's byte count (chw_ops.inv_res_plan, inv_res_smem);
+// rate: the depthwise rate, 1, or 2 at stride 1 without prefetch (the
+// window grows by the rate on each side, the taps stand rate apart).
 // Returns the cudaError_t of the launch (0 = ok).
 extern "C" int segtpu_inv_res(const void* x, const float* wexp,
                               const float* bexp, const float* wdw,
@@ -1178,10 +1203,11 @@ extern "C" int segtpu_inv_res(const void* x, const float* wexp,
                               const float* bproj, void* out, int B, int Cin,
                               int Cmid, int Cout, int H, int W, int stride,
                               int TH, int TW, int MC, int RP, int pf,
-                              int residual, int bf16, int smem,
+                              int residual, int bf16, int smem, int rate,
                               void* stream) {
   const int esize = bf16 ? 2 : 4;
-  if ((stride != 1 && stride != 2) || TH < 1 || TW < 4 || TW & (TW - 1) ||
+  if ((rate != 1 && (rate != 2 || stride != 1 || pf)) ||
+      (stride != 1 && stride != 2) || TH < 1 || TW < 4 || TW & (TW - 1) ||
       MC < 4 || MC % 4 || Cmid % MC || Cout % 4 || RP < 4 || RP % 4 ||
       (pf != 0 && pf != 1) ||
       (pf && (W % 4 || reinterpret_cast<uintptr_t>(x) % (4 * esize))) ||
@@ -1190,7 +1216,7 @@ extern "C" int segtpu_inv_res(const void* x, const float* wexp,
        reinterpret_cast<uintptr_t>(bexp)) &
           15)
     return (int)cudaErrorInvalidValue;
-  const cc::Geo g = cc::geo(stride, Cout, TH, TW, MC, RP, pf);
+  const cc::Geo g = cc::geo(stride, Cout, TH, TW, MC, RP, pf, rate);
   if (cc::smem_bytes(g, Cin, MC, wexp != nullptr, esize, pf) != smem ||
       smem > kSmemMax)
     return (int)cudaErrorInvalidValue;
@@ -1199,6 +1225,9 @@ extern "C" int segtpu_inv_res(const void* x, const float* wexp,
                    H / stride, W / stride, TH,        TW,   MC,   residual,
                    pf};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rate == 2)
+    return bf16 ? cc::launch_tile<__nv_bfloat16, 1, 2>(a, g, RP, smem, s)
+                : cc::launch_tile<float, 1, 2>(a, g, RP, smem, s);
   if (bf16)
     return stride == 1
                ? cc::launch_tile<__nv_bfloat16, 1>(a, g, RP, smem, s)

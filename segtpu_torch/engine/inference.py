@@ -13,7 +13,12 @@ For even H and W the path is
 
 as the JAX engine's Pallas branch runs ``mbv2_chw_apply`` and
 ``build_fast_decoder`` or ``build_fast_template_decoder``, by the
-genotype's family. For odd H or W (the front kernel takes even
+genotype's family. The port's ``deeplab`` family (DeepLab-v3's ASPP head
+on an output stride 16 encoder, ``models/aspp_decoder.py``) takes the
+same path: its encoder's last four blocks run ``inv_res_chw`` at stride
+1 (three at depthwise rate 2), its head ``kernels.aspp.aspp_chw`` on the
+tensor cores and the classifier's ``conv_chw``, and its 1/16 logits the
+tail the rule picks (W-first at a 128-wide map, a 2048-wide frame). For odd H or W (the front kernel takes even
 sizes) the image is normalized on the device, zero-padded to the stride
 multiple, which is even, and packed by space-to-depth into the same
 folded encoder: the JAX engine runs such frames through the unfolded
@@ -45,7 +50,9 @@ Under ``utils.profiling.tracing()`` a call records its spans: the root
 clone, or the eager call); and inside the program the four layers
 ``.front``, ``.encoder``, ``.decoder`` and ``.tail``, whose device
 spans a graph holds as event nodes (a traced program is captured apart
-from the untraced one). ``predict_stream`` records ``.stream.stage``
+from the untraced one). The deeplab family's program also holds
+``.encoder.atrous`` (its four stride-16 blocks) and ``.decoder.aspp``
+(the head); the NAS families' programs hold neither. ``predict_stream`` records ``.stream.stage``
 and ``.stream.fetch``. Always on, a ``Segmenter`` counts its
 ``replays``, ``eager_calls``, ``captures`` and ``launches``: the
 port's kernels the card ran for its calls (a replay adds the launches
@@ -153,6 +160,7 @@ class Segmenter:
         self.decoder = fold_decoder(model.decoder,
                                     compute_dtype).to(self.device)
         self.num_classes = model.num_classes
+        self.family = getattr(model, "family", None)
         self._cache: Dict[Tuple, object] = {}
         self.replays = self.eager_calls = self.captures = self.launches = 0
 
@@ -360,7 +368,8 @@ class ShardedSegmenter:
     differ).
 
     Frames are stride-32 multiples with H % (2 n) == 0. A decoder of
-    neither family raises ``TypeError``.
+    neither family (the deeplab family's head, whose dilated encoder
+    reaches two rows a stage) raises ``TypeError``.
     """
 
     def __init__(self, seg: Segmenter, devices: Sequence):
@@ -369,9 +378,10 @@ class ShardedSegmenter:
         elif isinstance(seg.decoder, FoldedTemplateDecoder):
             sharded = ShardedTemplateDecoder
         else:
-            raise TypeError(f"sharded serving takes a folded micro or "
-                            f"template decoder, not "
-                            f"{type(seg.decoder).__name__}")
+            family = getattr(seg, "family", type(seg.decoder).__name__)
+            raise TypeError(f"sharded serving takes the micro or template "
+                            f"family, not the {family!r} family "
+                            f"({type(seg.decoder).__name__})")
         self.devices = [resolve_device(d) for d in devices]
         if not self.devices:
             raise ValueError("sharded inference needs at least one device")

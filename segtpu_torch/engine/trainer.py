@@ -184,6 +184,18 @@ def _labels_to(label, device) -> torch.Tensor:
     return torch.as_tensor(label).to(device).long()
 
 
+def _refuse_untrainable(genotype) -> None:
+    """The steps train a family whose decoder carries the aux heads the
+    loss reads (``DecoderFamily.trainable``); a served-only family
+    raises."""
+    from segtpu_torch.models.families import infer_family
+    family = infer_family(genotype)
+    if not family.trainable:
+        raise TypeError(f"make_train_step trains a family with aux heads, "
+                        f"not the {family.name!r} family, which is served "
+                        f"only")
+
+
 def _check_genotype(module: nn.Module, genotype) -> None:
     if module.genotype != genotype:
         raise ValueError(f"the step was made for genotype {genotype!r}, the "
@@ -231,6 +243,7 @@ def make_train_step(genotype, optimizer, *, num_classes: int,
     gradients, as under optax). Polyak averaging runs when the state
     keeps an average (``init_train_state(do_polyak=True)``). The step
     carries its ``StepParts`` as ``step.parts``."""
+    _refuse_untrainable(genotype)
     loss_kw = dict(num_classes=num_classes, aux_weight=aux_weight,
                    kd_coeff=kd_coeff)
 

@@ -42,6 +42,8 @@ DEFAULT_BUILD_DIR = PKG_DIR / "_build"
 BUILD_DIR = DEFAULT_BUILD_DIR   # set by utils.cache.enable_compilation_cache
 KERNEL_SOURCES = ("front", "upsample_argmax", "conv_chw", "inv_res",
                   "pointwise", "cell", "resize",
+                  # the DeepLab-v3 head's dense products (kernels/aspp.py)
+                  "aspp",
                   # train-mode BatchNorm (kernels/bn_train.py)
                   "bn_train",
                   # the experiments' kernels (segtpu_torch.scripts)

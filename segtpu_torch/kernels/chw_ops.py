@@ -474,11 +474,12 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def inv_res_window(th: int, tw: int, stride: int):
+def inv_res_window(th: int, tw: int, stride: int, dilation: int = 1):
     """(rows, cols) of the input window an output tile of th x tw reads:
-    the tile plus a one-pixel halo (stride 1), or rows 2i-1..2i+1 of
-    every output row i (stride 2)."""
-    return stride * th + 3 - stride, stride * tw + 3 - stride
+    the tile plus a halo of the depthwise rate (stride 1), or rows
+    2i-1..2i+1 of every output row i (stride 2)."""
+    return (stride * th + 2 * dilation + 1 - stride,
+            stride * tw + 2 * dilation + 1 - stride)
 
 
 def _tile_ok(th, tw, ho, wo):
@@ -531,7 +532,7 @@ def inv_res_regs(rp: int) -> int:
 
 def inv_res_smem(cin: int, cout: int, mc: int, th: int, tw: int,
                  stride: int, rp: int, pf: int, expand: bool,
-                 esize: int) -> int:
+                 esize: int, dilation: int = 1) -> int:
     """Shared-memory bytes of one CUDA-core inverted-residual block
     (csrc/inv_res.cu ``cc::smem_bytes``): the window [cin][rows][cols
     rounded to 4] in the compute dtype (``esize`` bytes; with pf two of
@@ -540,8 +541,9 @@ def inv_res_smem(cin: int, cout: int, mc: int, th: int, tw: int,
     expand weights [cin][mc rounded to 8]; the depthwise output [mc][th
     tw]; the chunk's project weights [mc][cout rounded to rp]; two buffers
     of the chunk's small weights (13 floats a mid channel); an int a
-    window quad (its in-image mask)."""
-    wh, ww = inv_res_window(th, tw, stride)
+    window quad (its in-image mask). ``dilation``: the depthwise rate,
+    whose halo widens the window."""
+    wh, ww = inv_res_window(th, tw, stride, dilation)
     xp = wh * _r4(_IR_SHIFT * pf + ww)
     floats = ((mc * xp + cin * _cdiv(mc, _IR_RE) * _IR_RE if expand else 0)
               + mc * th * tw + mc * _cdiv(cout, rp) * rp + 2 * _IR_SMALL * mc
@@ -559,13 +561,14 @@ def inv_res_resident(nt: int, smem: int, regs: int) -> int:
 
 
 def inv_res_plans(cin: int, cmid: int, cout: int, ho: int, wo: int,
-                  stride: int, dtype, expand: bool, vec: bool = True):
+                  stride: int, dtype, expand: bool, vec: bool = True,
+                  dilation: int = 1):
     """Every plan a CUDA-core launch may take: an instantiated rp of
     ``dtype``, a tile th x tw (no more than twice the output's extent
     where any tile is), at most ``inv_res_threads`` threads, mc dividing
     cmid, prefetch or not (prefetch only where ``vec``: the input's rows
-    allow aligned 4-value copies), in 227 KB of shared memory. The sum
-    order does not depend on the plan."""
+    allow aligned 4-value copies, and at depthwise rate 1), in 227 KB of
+    shared memory. The sum order does not depend on the plan."""
     mcs = [m for m in _IR_MCS if cmid % m == 0]
     esize = torch.tensor([], dtype=dtype).element_size()
     plans = []
@@ -577,9 +580,9 @@ def inv_res_plans(cin: int, cmid: int, cout: int, ho: int, wo: int,
                 if nt > inv_res_threads(rp):
                     continue
                 for mc in mcs:
-                    for pf in (0, 1) if vec else (0,):
+                    for pf in (0, 1) if vec and dilation == 1 else (0,):
                         smem = inv_res_smem(cin, cout, mc, th, tw, stride,
-                                            rp, pf, expand, esize)
+                                            rp, pf, expand, esize, dilation)
                         if smem <= _SMEM_LIMIT:
                             plans.append(InvResPlan(
                                 th, tw, mc, rp, pf, nt, smem,
@@ -590,7 +593,7 @@ def inv_res_plans(cin: int, cmid: int, cout: int, ho: int, wo: int,
 
 def inv_res_cost(plan: InvResPlan, cin: int, cmid: int, cout: int, ho: int,
                  wo: int, stride: int, batch: int, expand: bool,
-                 sm_count: int, esize: int = 2) -> float:
+                 sm_count: int, esize: int = 2, dilation: int = 1) -> float:
     """A model of a launch's time in SM cycles. Each tile's phases, chunk
     after chunk, cost the larger of their warp-instructions (all counted
     with their idle lanes) at 4 a cycle when 8 warps or more are resident
@@ -606,7 +609,7 @@ def inv_res_cost(plan: InvResPlan, cin: int, cmid: int, cout: int, ho: int,
     table decides the encoder's shapes."""
     th, tw, mc, rp, pf, nt, _, blocks = plan
     re = _IR_RE
-    wh, ww = inv_res_window(th, tw, stride)
+    wh, ww = inv_res_window(th, tw, stride, dilation)
     xp = wh * _r4(_IR_SHIFT * pf + ww)
     warps, chunks = _cdiv(nt, 32), cmid // mc
     rate = min(4.0, 0.5 * blocks * warps)
@@ -626,45 +629,54 @@ def inv_res_cost(plan: InvResPlan, cin: int, cmid: int, cout: int, ho: int,
     return waves * blocks * (chunks * per_chunk + stage + latency)
 
 
-# (cin, cmid, cout, stride) -> (th, tw, mc, rp, pf): of the plans
+# (cin, cmid, cout, stride, rate) -> (th, tw, mc, rp, pf): of the plans
 # ``python3 segtpu_torch/kernels/inv_res_sweep.py --top 200`` times at the
 # MobileNet-v2 blocks of a bf16 b8 1024x2048 batch on an H100, the one with
-# the least time summed over a shape's blocks (PERF.md)
+# the least time summed over a shape's blocks (PERF.md); the last three, the
+# stride-16 blocks of an output stride 16 encoder (the 160- and 320-channel
+# stage at 64x128 a frame, depthwise rate 1 then 2), timed alike by
+# ``python3 segtpu_torch/kernels/aspp_probe.py --sweep 40``
 _MEASURED_PLANS = {
-    (32, 32, 16, 1): (16, 32, 8, 8, 1),
-    (16, 96, 24, 2): (8, 32, 24, 4, 1),
-    (24, 144, 24, 1): (8, 64, 16, 12, 0),
-    (24, 144, 32, 2): (8, 32, 24, 4, 0),
-    (32, 192, 32, 1): (16, 32, 24, 8, 0),
-    (32, 192, 64, 2): (8, 32, 24, 8, 0),
-    (64, 384, 64, 1): (8, 32, 32, 8, 0),
-    (64, 384, 96, 1): (8, 32, 32, 12, 0),
-    (96, 576, 96, 1): (8, 32, 32, 12, 0),
-    (96, 576, 160, 2): (4, 32, 24, 20, 0),
-    (160, 960, 160, 1): (4, 32, 32, 20, 0),
-    (160, 960, 320, 1): (4, 16, 64, 20, 0),
+    (32, 32, 16, 1, 1): (16, 32, 8, 8, 1),
+    (16, 96, 24, 2, 1): (8, 32, 24, 4, 1),
+    (24, 144, 24, 1, 1): (8, 64, 16, 12, 0),
+    (24, 144, 32, 2, 1): (8, 32, 24, 4, 0),
+    (32, 192, 32, 1, 1): (16, 32, 24, 8, 0),
+    (32, 192, 64, 2, 1): (8, 32, 24, 8, 0),
+    (64, 384, 64, 1, 1): (8, 32, 32, 8, 0),
+    (64, 384, 96, 1, 1): (8, 32, 32, 12, 0),
+    (96, 576, 96, 1, 1): (8, 32, 32, 12, 0),
+    (96, 576, 160, 2, 1): (4, 32, 24, 20, 0),
+    (160, 960, 160, 1, 1): (4, 32, 32, 20, 0),
+    (160, 960, 320, 1, 1): (4, 16, 64, 20, 0),
+    (96, 576, 160, 1, 1): (4, 32, 64, 20, 0),
+    (160, 960, 160, 1, 2): (16, 8, 48, 12, 0),
+    (160, 960, 320, 1, 2): (8, 8, 48, 20, 0),
 }
 
 
 def inv_res_plan(cin: int, cmid: int, cout: int, ho: int, wo: int,
                  stride: int, dtype, batch: int, expand: bool, *,
-                 sm_count: int, vec: bool = True) -> InvResPlan:
+                 sm_count: int, vec: bool = True,
+                 dilation: int = 1) -> InvResPlan:
     """The plan of one CUDA-core launch: for bf16, the measured plan of the
-    block shape where there is one and it is among ``inv_res_plans``;
-    otherwise the plan ``inv_res_cost`` rates fastest."""
+    block shape and depthwise rate (``_MEASURED_PLANS``) where there is
+    one and it is among ``inv_res_plans``; otherwise the plan
+    ``inv_res_cost`` rates fastest."""
     plans = inv_res_plans(cin, cmid, cout, ho, wo, stride, dtype, expand,
-                          vec)
+                          vec, dilation)
     if not plans:
         raise ValueError(f"inv_res: no plan fits for cin={cin} cmid={cmid} "
                          f"cout={cout}")
     if dtype == torch.bfloat16:
-        t = _MEASURED_PLANS.get((cin, cmid, cout, stride))
+        t = _MEASURED_PLANS.get((cin, cmid, cout, stride, dilation))
         hit = [p for p in plans if p[:5] == t]
         if hit:
             return hit[0]
     esize = torch.tensor([], dtype=dtype).element_size()
     return min(plans, key=lambda p: inv_res_cost(
-        p, cin, cmid, cout, ho, wo, stride, batch, expand, sm_count, esize))
+        p, cin, cmid, cout, ho, wo, stride, batch, expand, sm_count, esize,
+        dilation))
 
 
 _inv_res_plan = functools.lru_cache(maxsize=None)(inv_res_plan)
@@ -672,12 +684,12 @@ _inv_res_plan = functools.lru_cache(maxsize=None)(inv_res_plan)
 
 def inv_res_args(plan: InvResPlan, b: int, cin: int, cmid: int, cout: int,
                  h: int, w: int, stride: int, residual: bool,
-                 bf16: bool) -> tuple:
-    """The 15 ints the C entry ``segtpu_inv_res`` takes after its eight
+                 bf16: bool, dilation: int = 1) -> tuple:
+    """The 16 ints the C entry ``segtpu_inv_res`` takes after its eight
     pointers: the shapes, the plan's (th, tw, mc, rp, pf), the residual
-    and bf16 flags and the plan's shared bytes."""
+    and bf16 flags, the plan's shared bytes and the depthwise rate."""
     return (b, cin, cmid, cout, h, w, stride, plan.th, plan.tw, plan.mc,
-            plan.rp, plan.pf, int(residual), int(bf16), plan.smem)
+            plan.rp, plan.pf, int(residual), int(bf16), plan.smem, dilation)
 
 
 def pack_inv_res(w_exp, w_proj, dtype):
@@ -721,14 +733,15 @@ def _inv_res_geometry(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, stride,
 
 
 def _inv_res_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
-                   stride: int, residual: bool):
+                   stride: int, residual: bool, dilation: int = 1):
     _, _, h, w = x.shape
     xf = x.float()
     mid = xf
     if w_exp is not None:   # f32 expand, never rounded
         mid = relu6(_dense_sum([xf], w_exp.to(x.dtype).float())
                     + b_exp.float()[:, None, None])
-    taps = _taps(F.pad(mid, (1, 1, 1, 1)), 3, 1, stride,
+    d = dilation            # zero padding of the rate, taps d apart
+    taps = _taps(F.pad(mid, (d, d, d, d)), 3, d, stride,
                  (h // stride, w // stride))
     d = relu6(_depthwise_sum(taps, w_dw.float())
               + b_dw.float()[:, None, None])
@@ -741,13 +754,13 @@ def _inv_res_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
 
 
 def inv_res_chw_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
-                      residual: bool = False):
+                      residual: bool = False, dilation: int = 1):
     """Plain PyTorch version of ``inv_res_chw`` (same signature and
     numerics)."""
     _inv_res_geometry(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, 1,
                       residual, "inv_res_chw")
     return _inv_res_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj,
-                          stride=1, residual=residual)
+                          stride=1, residual=residual, dilation=dilation)
 
 
 def inv_res_s2_chw_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj):
@@ -821,7 +834,7 @@ def _check_inv_res_packed(packed, w_exp, w_proj, dev, what):
 def _inv_res_entry():
     from segtpu_torch.kernels._build import load
     fn = load("inv_res").segtpu_inv_res
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 16 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -839,10 +852,14 @@ def _inv_res_tc_entry():
 
 def _inv_res_launch(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
                     stride: int, residual: bool, what: str, tile=None,
-                    packed=None):
-    """``inv_res_kernel`` (CUDA cores, bf16 or f32) on a CUDA tensor;
-    ``tile`` an ``InvResPlan``, else ``inv_res_plan``'s; ``packed``
-    ``pack_inv_res``'s weights, else packed for this call."""
+                    packed=None, dilation: int = 1):
+    """``inv_res_kernel`` (CUDA cores, bf16 or f32) on a CUDA tensor, at
+    depthwise ``dilation`` 1, or 2 at stride 1; ``tile`` an ``InvResPlan``, else
+    ``inv_res_plan``'s; ``packed`` ``pack_inv_res``'s weights, else
+    packed for this call."""
+    if dilation not in (1, 2) or (dilation == 2 and stride != 1):
+        raise ValueError(f"{what} kernel runs rate 1, or rate 2 at stride "
+                         f"1, not rate {dilation} at stride {stride}")
     (b, cin, cmid, cout, h, w), (be, wd, bd, bp) = _inv_res_kernel_args(
         x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, stride, residual, what)
     dev = x.device
@@ -853,15 +870,17 @@ def _inv_res_launch(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
     vec = w % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
     plan = tile or _inv_res_plan(cin, cmid, cout, h // stride, w // stride,
                                  stride, x.dtype, b, w_exp is not None,
-                                 sm_count=_sm_count(dev), vec=vec)
+                                 sm_count=_sm_count(dev), vec=vec,
+                                 dilation=dilation)
     out = torch.empty((b, cout, h // stride, w // stride), dtype=x.dtype,
                       device=dev)
+    ints = inv_res_args(plan, b, cin, cmid, cout, h, w, stride, residual,
+                        x.dtype == torch.bfloat16, dilation)
     rc = _launch(_inv_res_entry(), x, x.data_ptr(),
                  pe.data_ptr() if pe is not None else None,
                  be.data_ptr() if be is not None else None, wd.data_ptr(),
                  bd.data_ptr(), pp.data_ptr(), bp.data_ptr(), out.data_ptr(),
-                 *inv_res_args(plan, b, cin, cmid, cout, h, w, stride,
-                               residual, x.dtype == torch.bfloat16))
+                 *ints)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     return out
@@ -899,20 +918,24 @@ def _inv_res_tc_launch(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
 
 def inv_res_chw(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
                 residual: bool = False, use_kernels: bool = True,
-                packed=None):
+                packed=None, dilation: int = 1):
     """Fused stride-1 inverted residual, x [B, Cin, H, W] -> [B, Cout,
     H, W]: expand 1x1 + relu6 (skipped when ``w_exp`` is None), dw 3x3
-    + relu6, project 1x1 (+ x when ``residual``), BN folded into every
-    OIHW weight. On a CUDA tensor this launches the CUDA-core kernel,
-    bf16 or f32 (``inv_res_chw.launches``), with ``packed`` (``pack_inv_res``
-    of the expand and project weights, made once by the weights' owner)
-    or weights packed for the call."""
+    at rate ``dilation`` (zero padding ``dilation``) + relu6, project 1x1
+    (+ x when ``residual``), BN folded into every OIHW weight. On a CUDA
+    tensor this launches the CUDA-core kernel, bf16 or f32
+    (``inv_res_chw.launches``; rate 1 or 2), with ``packed``
+    (``pack_inv_res`` of the expand and project weights, made once by the
+    weights' owner) or weights packed for the call. Calls at a rate above
+    1, on either route, count in ``inv_res_chw.dilated_calls``."""
+    if dilation > 1:
+        inv_res_chw.dilated_calls += 1
     if _use_plain(x, use_kernels, "inv_res_chw"):
         return inv_res_chw_plain(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj,
-                                 residual=residual)
+                                 residual=residual, dilation=dilation)
     out = _inv_res_launch(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj,
                           stride=1, residual=residual, what="inv_res_chw",
-                          packed=packed)
+                          packed=packed, dilation=dilation)
     inv_res_chw.launches += 1
     return out
 
@@ -963,6 +986,7 @@ def inv_res_tc_chw(x, w_exp, b_exp, w_dw, b_dw, w_proj, b_proj, *,
 
 
 inv_res_chw.launches = 0
+inv_res_chw.dilated_calls = 0
 inv_res_s2_chw.launches = 0
 inv_res_tc_chw.launches = 0
 

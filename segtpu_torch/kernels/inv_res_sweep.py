@@ -306,8 +306,10 @@ def main(argv=None):
     print(f"{args.kernel}: sum best {sum(r['best_ms'] for r in rows):.4f} ms, "
           f"rule {sum(r['rule_ms'] for r in rows):.4f} ms; {other} "
           f"{sum(r[f'{other}_ms'] for r in rows):.4f} ms")
+    # _MEASURED_PLANS keys its shapes by the depthwise rate too
+    rate = (1,) if args.kernel == "cuda_cores" else ()
     print(f"{TABLES[args.kernel]} = {{" + ", ".join(
-        f"{key}: {plan}" for key, plan in table(rows).items())
+        f"{key + rate}: {plan}" for key, plan in table(rows).items())
         + "}")
     os.makedirs("chiprun_out", exist_ok=True)
     path = os.path.join("chiprun_out", f"inv_res_sweep_{args.kernel}.json")

@@ -1,7 +1,13 @@
 """MobileNet-v2 encoder with multi-scale taps
 (counterpart: segtpu/models/encoders.py).
 
-Four taps at output strides 4/8/16/32 (24/32/96/320 channels). Two
+Four taps at output strides 4/8/16/32 (24/32/96/320 channels), or at
+``output_stride=16`` 4/8/16/16: slim's ``output_stride`` rule
+(tensorflow/models research/slim nets/mobilenet, the DeepLab-v3
+feature extractor, arXiv:1706.05587), where once the running stride
+reaches 16 a block that would stride runs at stride 1 and every later
+depthwise conv at rate 2 (the first 160-channel block at rate 1, the
+other two and the 320-channel block at rate 2, zero padding 2). Two
 input formats: ``"nhwc3"`` — the normalized image as [N, 3, H, W] and a
 3x3 stride-2 stem — and ``"s2d12"`` — its 2x2 space-to-depth form
 [N, 12, H/2, W/2] with the stem folded into an equivalent 2x2 stride-1
@@ -32,18 +38,20 @@ MBV2_TAP_CHANNELS = (24, 32, 96, 320)
 
 
 class InvRes(nn.Module):
-    """Inverted residual: [expand 1x1] -> dw 3x3 -> project 1x1."""
+    """Inverted residual: [expand 1x1] -> dw 3x3 (at ``stride`` and rate
+    ``dilation``) -> project 1x1."""
 
     def __init__(self, cin: int, cout: int, t: int, stride: int, *,
-                 generator: torch.Generator):
+                 dilation: int = 1, generator: torch.Generator):
         super().__init__()
         mid = cin * t
         if t != 1:
             self.expand = ConvBN(cin, mid, 1, act="relu6",
                                  generator=generator)
-        self.dw = ConvBN(mid, mid, 3, stride=stride, groups=mid,
-                         act="relu6", generator=generator)
+        self.dw = ConvBN(mid, mid, 3, stride=stride, dilation=dilation,
+                         groups=mid, act="relu6", generator=generator)
         self.project = ConvBN(mid, cout, 1, act="none", generator=generator)
+        self.stride, self.dilation = stride, dilation
         self.residual = stride == 1 and cin == cout
 
     def forward(self, x):
@@ -81,18 +89,43 @@ def stem_s2d_kernel(w3):
     return w2
 
 
-class MobileNetV2(nn.Module):
-    """Feature extractor; ``forward`` returns the list of 4 taps."""
+def block_schedule(output_stride: int = 32):
+    """[(stride, rate)] of the 17 blocks under slim's ``output_stride``
+    rule: the stem strides 2; a block whose stride would take the running
+    stride past ``output_stride`` runs at stride 1 and multiplies the rate
+    of the blocks after it by the stride it would have had."""
+    if output_stride not in (16, 32):
+        raise ValueError(f"output_stride is 16 or 32, not {output_stride}")
+    out, current, rate = [], 2, 1
+    for _, _, n, s in _MBV2_CFG:
+        for i in range(n):
+            stride = s if i == 0 else 1
+            if current == output_stride:
+                out.append((1, rate))
+                rate *= stride
+            else:
+                out.append((stride, 1))
+                current *= stride
+    return out
 
-    def __init__(self, *, in_channels: int = 3, generator: torch.Generator):
+
+class MobileNetV2(nn.Module):
+    """Feature extractor; ``forward`` returns the list of 4 taps (at
+    ``output_stride`` 32, or 16 with the last stage dilated)."""
+
+    def __init__(self, *, in_channels: int = 3, output_stride: int = 32,
+                 generator: torch.Generator):
         super().__init__()
+        self.output_stride = output_stride
         self.stem = ConvBN(in_channels, 32, 3, stride=2, act="relu6",
                            generator=generator)
         blocks = []
         cin = 32
-        for t, c, n, s in _MBV2_CFG:
-            for i in range(n):
-                blocks.append(InvRes(cin, c, t, s if i == 0 else 1,
+        sched = iter(block_schedule(output_stride))
+        for t, c, n, _ in _MBV2_CFG:
+            for _ in range(n):
+                stride, rate = next(sched)
+                blocks.append(InvRes(cin, c, t, stride, dilation=rate,
                                      generator=generator))
                 cin = c
         self.blocks = nn.ModuleList(blocks)

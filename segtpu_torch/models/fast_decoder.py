@@ -435,13 +435,19 @@ class FoldedTemplateDecoder(_FoldedHead):
 def fold_decoder(dec, compute_dtype=torch.bfloat16):
     """The folded decoder of ``dec``'s f32 weights, on dec's device: a
     ``FoldedMicroDecoder`` of a ``MicroDecoder``, a
-    ``FoldedTemplateDecoder`` of a ``TemplateDecoder``."""
+    ``FoldedTemplateDecoder`` of a ``TemplateDecoder``, a
+    ``FoldedASPPDecoder`` of an ``ASPPDecoder`` (the deeplab family)."""
+    # aspp_decoder reads fast_encoder, which this module's importers load
+    from segtpu_torch.models.aspp_decoder import (ASPPDecoder,
+                                                  FoldedASPPDecoder)
     if isinstance(dec, MicroDecoder):
         return FoldedMicroDecoder(dec, compute_dtype).eval()
     if isinstance(dec, TemplateDecoder):
         return FoldedTemplateDecoder(dec, compute_dtype).eval()
-    raise TypeError(f"fold_decoder takes a MicroDecoder or a "
-                    f"TemplateDecoder, not {type(dec).__name__}")
+    if isinstance(dec, ASPPDecoder):
+        return FoldedASPPDecoder(dec, compute_dtype).eval()
+    raise TypeError(f"fold_decoder takes a MicroDecoder, a TemplateDecoder "
+                    f"or an ASPPDecoder, not {type(dec).__name__}")
 
 
 # ------------------------------------------------------- H-sharded mode

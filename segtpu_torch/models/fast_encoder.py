@@ -6,7 +6,10 @@ weights of a ``MobileNetV2`` from its f32 weights and returns a
 ``FoldedMobileNetV2``: the s2d stem as one ``conv_chw`` (k=2, relu6),
 the 13 stride-1 blocks as ``inv_res_chw`` and the 4 stride-2 blocks as
 ``inv_res_s2_chw``, each handed its expand and project weights in the
-CUDA-core kernel's layout (``pack_inv_res``), packed once here. Its
+CUDA-core kernel's layout (``pack_inv_res``), packed once here. An
+encoder at output stride 16 (``MobileNetV2(output_stride=16)``) runs
+its last four blocks as ``inv_res_chw`` at stride 1, three of them at
+depthwise rate 2 (``dilation=2``). Its
 forward takes the space-to-depth planes [N, 12, H/2, W/2] and returns
 the four taps (strides 4/8/16/32), with the tap rule of
 ``encoders.MobileNetV2``. Dense weights are rounded to
@@ -31,8 +34,10 @@ import torch.nn as nn
 from segtpu_torch.kernels.chw_ops import (conv_chw, fold_bn, inv_res_chw,
                                           inv_res_s2_chw, pack_inv_res)
 from segtpu_torch.models.encoders import (_MBV2_CFG, _TAP_STAGES,
-                                          MobileNetV2, stem_s2d_kernel)
+                                          MobileNetV2, block_schedule,
+                                          stem_s2d_kernel)
 from segtpu_torch.parallel.collectives import halo_exchange
+from segtpu_torch.utils.profiling import span
 
 
 def _fold(conv_bn):
@@ -45,11 +50,13 @@ def _fold(conv_bn):
 
 class FoldedInvRes(nn.Module):
     """One inverted residual with BN folded: expand (None for t = 1),
-    depthwise 3x3 at ``stride`` and project, as buffers."""
+    depthwise 3x3 at ``stride`` and rate ``dilation`` and project, as
+    buffers."""
 
     def __init__(self, blk, compute_dtype):
         super().__init__()
         self.stride = blk.dw.stride
+        self.dilation = blk.dw.dilation
         self.residual = blk.residual
         if hasattr(blk, "expand"):
             w, b = _fold(blk.expand)
@@ -78,7 +85,8 @@ class FoldedInvRes(nn.Module):
             return inv_res_s2_chw(*args, use_kernels=use_kernels,
                                   packed=packed)
         return inv_res_chw(*args, residual=self.residual,
-                           use_kernels=use_kernels, packed=packed)
+                           use_kernels=use_kernels, packed=packed,
+                           dilation=self.dilation)
 
 
 class FoldedMobileNetV2(nn.Module):
@@ -96,6 +104,13 @@ class FoldedMobileNetV2(nn.Module):
         for stage, (_, _, n, _) in enumerate(_MBV2_CFG):
             self.tap_after += [stage in _TAP_STAGES and i == n - 1
                                for i in range(n)]
+        # the blocks whose stride or rate the output_stride rule changed
+        # (at 16: the 160- and 320-channel ones) run inside the device span
+        # segtpu.engine.encoder.atrous; at 32 there are none
+        self.atrous_from = next(
+            (i for i, (a, b) in enumerate(zip(
+                block_schedule(32), block_schedule(enc.output_stride)))
+             if a != b), len(self.blocks))
 
     def stem(self, x12, use_kernels: bool = True):
         return conv_chw(x12, self.stem_w, self.stem_b, k=2, act="relu6",
@@ -104,10 +119,19 @@ class FoldedMobileNetV2(nn.Module):
     def forward(self, x12, use_kernels: bool = True) -> List[torch.Tensor]:
         y = self.stem(x12, use_kernels)
         taps = []
-        for blk, is_tap in zip(self.blocks, self.tap_after):
-            y = blk(y, use_kernels)
-            if is_tap:
-                taps.append(y)
+        k = self.atrous_from
+
+        def run(y, lo, hi):
+            for blk, is_tap in zip(self.blocks[lo:hi], self.tap_after[lo:hi]):
+                y = blk(y, use_kernels)
+                if is_tap:
+                    taps.append(y)
+            return y
+
+        y = run(y, 0, k)
+        if k < len(self.blocks):
+            with span("segtpu.engine.encoder.atrous", device=y.device):
+                run(y, k, len(self.blocks))
         return taps
 
 
@@ -134,6 +158,9 @@ def mbv2_chw_sharded(encs, x12s, use_kernels: bool = True):
     row to drop: the kernel's own padding is the image's
     (``halo_exchange(ends=False)``)."""
     uk, last = use_kernels, len(encs) - 1
+    if any(blk.dilation != 1 for blk in encs[0].blocks):
+        raise ValueError("the H-sharded encoder runs rate-1 blocks (one "
+                         "halo row a stage), not a dilated encoder")
 
     def stage(fn_of, ys, up: int, dn: int, drop_top: int, drop_bottom: int):
         ext = halo_exchange(ys, up, dn, ends=False)

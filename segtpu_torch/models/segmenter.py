@@ -1,7 +1,8 @@
 """Encoder + decoder composition (counterpart: segtpu/models/segmenter.py).
 
 ``Segmenter.forward`` returns logits at 1/4 input resolution
-[N, K, H/4, W/4]; the engine upsamples. In train mode (``.train()``)
+[N, K, H/4, W/4] (the NAS decoders), or at the head's output stride
+(the ``deeplab`` family: 1/16); the engine upsamples. In train mode (``.train()``)
 every BatchNorm normalizes with its batch's stats and moves its running
 stats; ``with_aux`` adds the decoder's auxiliary logits and
 ``freeze_encoder`` runs the encoder as stage-1 proxy training does.
@@ -32,9 +33,11 @@ class Segmenter(nn.Module):
         super().__init__()
         fam = get_family(family) if family else infer_family(genotype)
         fam.validate(genotype)
+        self.family = fam.name
         self.genotype = genotype
         self.num_classes = num_classes
-        self.encoder = MobileNetV2(generator=generator)
+        self.encoder = MobileNetV2(
+            output_stride=fam.encoder_stride(genotype), generator=generator)
         self.decoder = fam.build(genotype, MBV2_TAP_CHANNELS, num_classes,
                                  agg_size=agg_size, repeats=repeats,
                                  aux=aux, aux_cell=aux_cell,
@@ -49,6 +52,7 @@ class Segmenter(nn.Module):
         decoder stage 1 trained."""
         model = cls.__new__(cls)
         nn.Module.__init__(model)
+        model.family = infer_family(genotype).name
         model.genotype = genotype
         model.num_classes = num_classes
         model.encoder = encoder

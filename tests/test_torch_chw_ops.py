@@ -245,7 +245,7 @@ def test_inv_res_tile_fits_every_encoder_block(elt, hw):
         assert p.smem == inv_res_smem(cin, cout, p.mc, p.th, p.tw, st, p.rp,
                                       p.pf, expand, elt) <= 227 * 1024
         if hw == (512, 1024) and elt == 2:
-            assert tuple(p[:5]) == _MEASURED_PLANS[(cin, cmid, cout, st)]
+            assert tuple(p[:5]) == _MEASURED_PLANS[(cin, cmid, cout, st, 1)]
 
 
 def test_inv_res_tile_rule_without_a_measurement():

@@ -68,7 +68,7 @@ def test_plan_fits_every_block_b8(i):
     cin, cmid, cout, st, h, w, expand = BLOCKS[i]
     p = _check(cin, cmid, cout, st, h // st, w // st, torch.bfloat16, 8,
                expand)
-    assert tuple(p[:5]) == _MEASURED_PLANS[(cin, cmid, cout, st)]
+    assert tuple(p[:5]) == _MEASURED_PLANS[(cin, cmid, cout, st, 1)]
 
 
 @pytest.mark.parametrize("halo", [1, 2])
@@ -110,14 +110,20 @@ def test_plan_fits_odd_sizes(case, dtype):
 
 def test_measured_plans_are_plans():
     """Every entry of the measured table is a plan of its block at the b8
-    1024 x 2048 shapes (else the rule would ignore it)."""
-    shapes = {(c, m, o, s): (h // s, w // s, e)
+    1024 x 2048 shapes (else the rule would ignore it): the 17 blocks at
+    rate 1, and the stride-16 blocks of an output stride 16 encoder on
+    its 64 x 128 map."""
+    shapes = {(c, m, o, s, 1): (h // s, w // s, e)
               for c, m, o, s, h, w, e in BLOCKS}
+    os16 = {key for key in _MEASURED_PLANS if key not in shapes}
+    assert os16 == {(96, 576, 160, 1, 1), (160, 960, 160, 1, 2),
+                    (160, 960, 320, 1, 2)}
+    shapes.update({key: (64, 128, True) for key in os16})
     assert set(_MEASURED_PLANS) == set(shapes)
     for key, plan in _MEASURED_PLANS.items():
         ho, wo, e = shapes[key]
         assert plan in [tuple(p[:5]) for p in inv_res_plans(
-            *key[:3], ho, wo, key[3], torch.bfloat16, e)]
+            *key[:3], ho, wo, key[3], torch.bfloat16, e, dilation=key[4])]
 
 
 def test_rule_without_a_measurement_is_the_cost_models_best():
@@ -136,7 +142,8 @@ def test_rule_without_a_measurement_is_the_cost_models_best():
 def test_args_hand_the_plan_to_the_entry(monkeypatch):
     """``_inv_res_launch`` hands the entry x, the packed weights, the f32
     biases and depthwise weight, the output and ``inv_res_args`` of the
-    plan: shapes, (th, tw, mc, rp, pf), the flags and the shared bytes.
+    plan: shapes, (th, tw, mc, rp, pf), the flags, the shared bytes and
+    the depthwise rate.
     The launch itself is stood in for (no card here)."""
     seen = []
     monkeypatch.setattr(chw_ops, "_launch",
@@ -150,13 +157,13 @@ def test_args_hand_the_plan_to_the_entry(monkeypatch):
     (fn, a), = seen
     plan = inv_res_plan(24, 144, 24, 12, 20, 1, torch.bfloat16, 2, True,
                         sm_count=SMS)
-    assert fn == "entry" and len(a) == 8 + 15
+    assert fn == "entry" and len(a) == 8 + 16
     assert a[0] == x.data_ptr() and a[7] == out.data_ptr()
     assert (a[1], a[5]) == (packed[0].data_ptr(), packed[1].data_ptr())
     assert a[8:] == inv_res_args(plan, 2, 24, 144, 24, 12, 20, 1, True,
                                  True)
     assert a[8:] == (2, 24, 144, 24, 12, 20, 1, plan.th, plan.tw, plan.mc,
-                     plan.rp, plan.pf, 1, 1, plan.smem)
+                     plan.rp, plan.pf, 1, 1, plan.smem, 1)
     # a given plan, no expand, f32, weights packed for the call
     seen.clear()
     x, *ws = _block_args(2, 32, 1, 16, 14, 22, torch.float32, seed=4)
@@ -165,7 +172,8 @@ def test_args_hand_the_plan_to_the_entry(monkeypatch):
                             tile=plan)
     (_, a), = seen
     assert a[1] is None and a[2] is None and a[5] is not None
-    assert a[8:] == (2, 32, 32, 16, 14, 22, 2, *plan[:5], 0, 0, plan.smem)
+    assert a[8:] == (2, 32, 32, 16, 14, 22, 2, *plan[:5], 0, 0, plan.smem,
+                     1)
 
 
 def test_packed_weights_are_the_weights_transposed():

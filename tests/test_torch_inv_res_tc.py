@@ -284,10 +284,11 @@ def test_sweep_covers_the_measured_tables(kernel):
     ``_MEASURED_PLANS`` (the served kernel's) and ``_MEASURED_TC_TILES``."""
     table = (chw_ops._MEASURED_PLANS if kernel == "cuda_cores"
              else chw_ops._MEASURED_TC_TILES)
+    rate = (1,) if kernel == "cuda_cores" else ()   # depthwise rate 1
     for cin, cmid, cout, st, h, w, _ in BLOCKS:
         tiles, rule, _ = _tiles(kernel, cin, cmid, cout, h // st, w // st,
                                 st, 8, SMS)
-        want = table[(cin, cmid, cout, st)]
+        want = table[(cin, cmid, cout, st) + rate]
         assert rule in tiles and want in [tuple(t[:len(want)])
                                           for t in tiles]
         assert tuple(rule[:len(want)]) == want
@@ -303,10 +304,11 @@ def test_served_block_shapes_stay_on_cuda_cores(monkeypatch):
     plain twin."""
     seen = []
 
-    def cuda_cores(x, *ws, stride, residual, what, tile=None, packed=None):
+    def cuda_cores(x, *ws, stride, residual, what, tile=None, packed=None,
+                   dilation=1):
         seen.append((what, stride))
         return chw_ops._inv_res_plain(x, *ws, stride=stride,
-                                      residual=residual)
+                                      residual=residual, dilation=dilation)
 
     def tensor_cores(*args, **kw):
         raise AssertionError("the served path reached the tensor cores")
